@@ -1,10 +1,11 @@
 """Command-line entry point of the PyTorch/CUDA port (standalone solve).
 
-Flag surface of kangaroo_tpu/cli.py restricted to the plain standalone
-solve; the other flags of that CLI exit non-zero with "not yet ported".
+Flag surface of kangaroo_tpu/cli.py restricted to the standalone solve,
+plain or symmetric (-sym); the other flags of that CLI exit non-zero
+with "not yet ported".
 
     python -m kangaroo_torch.cli [-d dp] [-nk n] [-nbrun n] [-m maxStep]
-        [-o file] [-dpcost s] [-device cuda|cpu] inFile
+        [-o file] [-dpcost s] [-sym] [-device cuda|cpu] inFile
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from .constants import RELEASE
 # Flags of kangaroo_tpu/cli.py that later slices of the port add, with
 # the number of arguments each takes.
 NOT_YET_PORTED = {
-    "-nwin": 1, "-backend": 1, "-platform": 1, "-sym": 0, "-devices": 1,
+    "-nwin": 1, "-backend": 1, "-platform": 1, "-devices": 1,
     "-w": 1, "-i": 1, "-wi": 1, "-ws": 0, "-wss": 0, "-wsplit": 0, "-wt": 1,
     "-wm": 3, "-wmdir": 2, "-winfo": 1, "-wpartcreate": 1, "-wcheck": 1,
     "-s": 0, "-c": 1, "-sp": 1, "-nt": 1, "-l": 0, "-check": 0,
@@ -35,6 +36,7 @@ def print_usage() -> None:
  -nbrun n: Jumps per device tick (default: auto from DP size)
  -dpcost s: Host cost per drained DP in seconds used by the auto-DP
        model (default 2e-6)
+ -sym: Equivalence-class walk over {P,-P} (~sqrt(2) fewer jumps)
  -device cuda|cpu: Where the walk runs (default cuda; cuda without a
        card is an error)
  -m maxStep: number of operations before give up the search (maxStep*expected operation)
@@ -70,6 +72,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     max_step = 0.0
     out_file = ""
     device = "cuda"
+    symmetry = False
     in_file = ""
 
     i = 0
@@ -95,6 +98,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             i += 1; max_step = float(_arg(argv, i, a))
         elif a == "-o":
             i += 1; out_file = _arg(argv, i, a)
+        elif a == "-sym":
+            symmetry = True
         elif a in NOT_YET_PORTED:
             print(f"{a}: not yet ported to kangaroo_torch "
                   f"(use python -m kangaroo_tpu.cli)")
@@ -120,6 +125,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     opts = SolverOptions(
         nb_kangaroo=nk, dp_size=dp, nb_run=nb_run, dp_cost=dp_cost,
         max_step=max_step, out_file=out_file, device=device,
+        symmetry=symmetry,
     )
     solver = KangarooSolver(cfg, opts)
     nk = opts.nb_kangaroo
@@ -135,6 +141,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"Stop :{cfg.range_end:X}")
     print(f"Keys :{len(cfg.keys)}")
     print(f"Number of kangaroos: 2^{math.log2(nk):.2f}")
+    if symmetry:
+        print("Symmetry: on (walk over classes {P,-P})")
     suggested_dp = solver.suggest_dp(nk)
     if opts.dp_size < 0:
         print(f"Suggested DP: {suggested_dp}")

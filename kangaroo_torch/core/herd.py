@@ -1,17 +1,24 @@
-"""Herd creation: tame/wild kangaroo starting states (plain walk).
+"""Herd creation: tame/wild kangaroo starting states.
 
-Semantics of Kangaroo::CreateHerd (Kangaroo.cpp:670-738, no-symmetry):
+Semantics of Kangaroo::CreateHerd (Kangaroo.cpp:670-738):
   * kangaroo j (with parity offset firstType) is TAME if
     (j + firstType) %% 2 == 0 else WILD;
   * tame start distance: uniform in [0, 2^rangePower] (Int::Rand);
   * wild start distance: the same draw minus rangeWidth/2 (mod n);
   * tame position  = d * G,  wild position = keyToSearch + d * G.
 
-Distances are carried on the device as 128-bit unsigned limb vectors;
-WILD lanes are stored with rangeWidth/2 added so the value never goes
-negative (the reference GPU engine's offset, GPUEngine.cu:381-433): so
-every lane carries its raw draw.  For a given MT19937 stream the herd
-is bit-equal to the JAX package's.
+Plain walk: distances are carried on the device as 128-bit unsigned
+limb vectors; WILD lanes are stored with rangeWidth/2 added so the
+value never goes negative (the reference GPU engine's offset,
+GPUEngine.cu:381-433): so every lane carries its raw draw.
+
+Symmetry walk (Kangaroo.cpp:686-693, 730-734): draws of rangePower - 1
+bits, wild lanes offset by rangeWidth/4 (centred on the translated
+key); the device carries the signed two's-complement 128-bit distance,
+and each start is normalized into its class {P, -P}: a lane whose y >
+(p-1)/2 takes p - y and the negated distance.
+
+For a given MT19937 stream the herd is bit-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -30,22 +37,26 @@ _W32 = 0xFFFFFFFF
 
 
 def draw_start_words(nb: int, range_power: int,
-                     rng: Optional[rng_mod.MT19937] = None) -> np.ndarray:
+                     rng: Optional[rng_mod.MT19937] = None,
+                     symmetry: bool = False) -> np.ndarray:
     """The raw draws r of nb kangaroos, (nb, 4) int64 32-bit words, LSW
-    first: one Int::Rand(range_power) per lane (Int.cpp:988-1000), the
-    same word stream as nb rand_int calls.
+    first: one Int::Rand(bits) per lane (Int.cpp:988-1000), the same
+    word stream as nb rand_int calls; bits is range_power, or
+    range_power - 1 in symmetry mode.
 
-    A tame lane starts at distance r, a wild lane at r - rangeWidth/2
-    (mod n); on the device both carry r (the wild offset convention).
+    Plain: a tame lane starts at distance r, a wild lane at
+    r - rangeWidth/2 (mod n); on the device both carry r (the wild
+    offset convention).  Symmetry: the wild offset is rangeWidth/4.
     """
     if not 0 < range_power <= 128:
         raise ValueError(f"range of {range_power} bits: device distances "
                          f"hold 128 bits")
+    bits = range_power - 1 if symmetry else range_power
     gen = rng if rng is not None else rng_mod._global
-    nbw = range_power // 32
+    nbw = bits // 32
     words = gen.next_block((nbw + 1) * nb).reshape(nb, nbw + 1)
     words = words.astype(np.int64)
-    words[:, nbw] &= (1 << (range_power % 32)) - 1
+    words[:, nbw] &= (1 << (bits % 32)) - 1
     r = np.zeros((nb, 4), dtype=np.int64)
     k = min(nbw + 1, 4)  # at 128 bits the masked extra word is zero
     r[:, :k] = words[:, :k]
@@ -111,9 +122,11 @@ def herd_from_draws(
     width_div2: int,
     key_point: Optional[curve.PointA],
     device="cuda",
+    symmetry: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Start state (px, py, d) as int32 tensors on `device` from the
-    draws r (draw_start_words) and the kangaroo types.
+    draws r (draw_start_words, with the same symmetry) and the kangaroo
+    types.
 
     Also rebuilds dead kangaroos in one batch per tick (the reference's
     resets are CreateHerd(1) calls, Kangaroo.cpp:467-471; the caller
@@ -122,11 +135,12 @@ def herd_from_draws(
     """
     n = r.shape[0]
     wild = np.asarray(types) == WILD
-    w2 = np.array([(width_div2 >> (32 * i)) & _W32 for i in range(4)],
+    off = width_div2 >> 1 if symmetry else width_div2
+    w2 = np.array([(off >> (32 * i)) & _W32 for i in range(4)],
                   dtype=np.int64)[None, :].repeat(n, 0)
-    above, below = _sub128(r, w2)        # r - W/2 and its sign
-    under, _ = _sub128(w2, r)            # W/2 - r
-    # |d| with d the mod-n start distance: r, or |r - W/2| on wild lanes
+    above, below = _sub128(r, w2)        # r - off and its sign
+    under, _ = _sub128(w2, r)            # off - r
+    # |d| with d the mod-n start distance: r, or |r - off| on wild lanes
     neg = wild & below
     mag = np.where(wild[:, None], np.where(below[:, None], under, above), r)
     top = max([i for i in range(4) if mag[:, i].any()], default=0)
@@ -141,7 +155,17 @@ def herd_from_draws(
         key_point = None
     px, py = _positions(ks, windows, torch.from_numpy(neg).to(device),
                         torch.from_numpy(wild).to(device), key_point)
-    return px, py, torch.from_numpy(_limbs(r, 8)).to(device)
+    if not symmetry:
+        return px, py, torch.from_numpy(_limbs(r, 8)).to(device)
+    from ..ops import field
+
+    # signed distance r or r - off, two's complement mod 2^128
+    d = np.where(wild[:, None], above, r)
+    d = torch.from_numpy(_limbs(d, 8)).to(device)
+    flip = (field.y_is_high(py) == 1)[None, :]
+    py = torch.where(flip, field.neg_y(py), py)
+    d = torch.where(flip, field.neg_u128(d), d)
+    return px, py, d
 
 
 def create_herd(
@@ -152,13 +176,16 @@ def create_herd(
     first_type: int = 0,
     rng: Optional[rng_mod.MT19937] = None,
     device="cuda",
+    symmetry: bool = False,
 ):
     """Start state (px, py, d) for nb kangaroos on `device`; lane j is
     wild when (j + first_type) is odd.
 
     key_point is the translated search key (keyToSearch); may be None
-    when only tame kangaroos are created.
+    when only tame kangaroos are created.  In symmetry mode every lane
+    starts normalized, in class 0.
     """
-    r = draw_start_words(nb, range_power, rng)
+    r = draw_start_words(nb, range_power, rng, symmetry)
     types = (np.arange(nb) + first_type) % 2
-    return herd_from_draws(r, types, width_div2, key_point, device=device)
+    return herd_from_draws(r, types, width_div2, key_point, device=device,
+                           symmetry=symmetry)

@@ -1,11 +1,13 @@
-"""Single-device solver orchestrator (plain walk).
+"""Single-device solver orchestrator (plain and symmetry walks).
 
 Counterpart of Kangaroo::Run + SolveKeyGPU (Kangaroo.cpp:334-506,
 510-644, 913-1083) and of kangaroo_tpu/core/solver.py: the herd lives
 on the device; each tick is one launch of the walk kernel over a window
 of nb_run jumps; the window's DP slots are compacted on the device and
 copied to the host in one read, inserted into the native hash table,
-and collisions are resolved exactly like the reference.
+and collisions are resolved exactly like the reference.  The symmetry
+walk (`-sym`) carries each lane's class beside the herd, signed device
+distances and a key recentred on the middle of the range.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ class SolverOptions:
     out_file: str = ""             # append solved keys
     quiet: bool = False
     device: str = "cuda"           # "cuda" or "cpu"
+    symmetry: bool = False         # -sym: walk classes {P, -P}
 
 
 @dataclass
@@ -145,10 +148,14 @@ class KangarooSolver:
         self.width_div2 = self.range_width >> 1
 
     def init_search_key(self, key_idx: int):
-        """Translate the key by rangeStart (Kangaroo.cpp:892-909)."""
+        """Translate the key by rangeStart (Kangaroo.cpp:892-909); the
+        symmetry walk recentres on the middle of the range (+width/2),
+        so that wild distances straddle zero."""
         self.key_idx = key_idx
         key = self.cfg.keys[key_idx]
         sp = self.range_start % N_ORDER
+        if self.opts.symmetry:
+            sp = (sp + self.width_div2) % N_ORDER
         if sp != 0:
             self.key_to_search = curve.add(key, curve.mul(sp).neg())
         else:
@@ -160,7 +167,8 @@ class KangarooSolver:
         k = float(nb_kangaroo or self.opts.nb_kangaroo)
         n = 2.0 ** self.range_power
         theta = 2.0 ** dp
-        z0 = (2.0 * (2.0 - math.sqrt(2.0))) * math.sqrt(math.pi)
+        gain_s = 1.0 / math.sqrt(2.0) if self.opts.symmetry else 1.0
+        z0 = (2.0 * (2.0 - math.sqrt(2.0)) * gain_s) * math.sqrt(math.pi)
         avg_dp0 = z0 * math.sqrt(n)
         op = z0 * (n * (k * theta + math.sqrt(n))) ** (1.0 / 3.0)
         # RAM model with the reference's C struct sizes (bytes):
@@ -207,10 +215,11 @@ class KangarooSolver:
 
         opts = self.opts
         dev = self.device
+        sym = opts.symmetry
         self.init_search_key(key_idx)
         jx, jy, jd = (
             torch.from_numpy(a.astype(np.int32)).to(dev)
-            for a in create_jump_table(self.range_power).as_arrays()
+            for a in create_jump_table(self.range_power, sym).as_arrays()
         )
         dp_size = opts.dp_size
         if dp_size < 0:
@@ -257,8 +266,11 @@ class KangarooSolver:
         t_herd = time.time()
         px, py, d = herd_mod.create_herd(
             n, self.range_power, self.width_div2, self.key_to_search, TAME,
-            rng, device=dev,
+            rng, device=dev, symmetry=sym,
         )
+        # each lane's class; the herd starts normalized, in class 0
+        symclass = (torch.zeros((n,), dtype=torch.int32, device=dev)
+                    if sym else None)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         self.stats.herd_time = time.time() - t_herd
@@ -268,6 +280,7 @@ class KangarooSolver:
         wd2 = self.width_div2
         wlo = np.uint64(wd2 & 0xFFFFFFFFFFFFFFFF)
         whi = np.uint64(wd2 >> 64)
+        wd2_sym = wd2 if sym else None
 
         def compact(count, dpx, dpd, step):
             """On-device DP compaction, then ONE copy to the host.
@@ -293,7 +306,8 @@ class KangarooSolver:
 
             Device distances become the reference's sign/type-flagged
             126-bit D encoding (identical to the per-item true distance
-            -- d, or d - rangeWidth/2 on wild lanes -- then convert).
+            -- d, or d - rangeWidth/2 on wild lanes; in symmetry mode
+            the signed 128-bit d itself -- then convert).
             Returns (records, lanes_in_walk_order).
             """
             steps = blk[:, 18].astype(np.int64)
@@ -310,14 +324,18 @@ class KangarooSolver:
             hi = dl[:, 4] | (dl[:, 5] << np.uint64(16)) | (
                 dl[:, 6] << np.uint64(32)) | (dl[:, 7] << np.uint64(48))
             ktype = (lanes & 1).astype(np.uint64)
-            wild = ktype == 1
-            borrow = (lo < wlo).astype(np.uint64)
-            nl = lo - wlo
-            nh = hi - whi - borrow
-            below = (hi < whi) | ((hi == whi) & (lo < wlo))
-            vlo = np.where(wild, nl, lo)
-            vhi = np.where(wild, nh, hi)
-            neg = wild & below
+            if sym:
+                neg = (hi >> np.uint64(63)).astype(bool)
+                vlo, vhi = lo, hi
+            else:
+                wild = ktype == 1
+                borrow = (lo < wlo).astype(np.uint64)
+                nl = lo - wlo
+                nh = hi - whi - borrow
+                below = (hi < whi) | ((hi == whi) & (lo < wlo))
+                vlo = np.where(wild, nl, lo)
+                vhi = np.where(wild, nh, hi)
+                neg = wild & below
             # |v| for negative values (two's-complement negate, 128b)
             mlo = (~vlo) + np.uint64(1)
             mhi = (~vhi) + (vlo == 0).astype(np.uint64)
@@ -338,7 +356,7 @@ class KangarooSolver:
         def drain(pulled):
             """Insert one window's DPs; resolve collisions; reset dead
             lanes.  Returns True when the key is solved."""
-            nonlocal px, py, d, result
+            nonlocal px, py, d, symclass, result
             lost, blk = pulled
             if lost:
                 self.stats.lost += lost
@@ -366,6 +384,7 @@ class KangarooSolver:
                     dead, res = collision_check(
                         d1, t1, d2, t2, self.key_to_search,
                         self.key_to_search_neg, self.range_start,
+                        width_div2_sym=wd2_sym,
                     )
                     if res is not None:
                         result = res
@@ -374,7 +393,8 @@ class KangarooSolver:
                         self.stats.dead += 1
                         resets.append(int(lanes[off + idx]))
             if resets:
-                px, py, d = self._reset_lanes(px, py, d, resets, rng)
+                px, py, d, symclass = self._reset_lanes(
+                    px, py, d, symclass, resets, rng)
             return False
 
         # Pipelined loop.  Each iteration compacts and copies tick T-1's
@@ -398,10 +418,12 @@ class KangarooSolver:
             pulled = compact(*pending) if pending is not None else None
             out = jump_cuda.jump_steps_with_dp(
                 px, py, d, jx, jy, jd, dp_masks, nb_run=nb_run,
-                slots=n_slots,
+                slots=n_slots, symmetry=sym, symclass=symclass,
             )
             px, py, d = out[0], out[1], out[2]
             pending = out[3:7]
+            if sym:
+                symclass = out[7]
             self.stats.count += n * nb_run
             tick += 1
             if pulled is not None:
@@ -422,27 +444,31 @@ class KangarooSolver:
             self._output(result)
         return result
 
-    def _reset_lanes(self, px, py, d, lanes, rng):
+    def _reset_lanes(self, px, py, d, symclass, lanes, rng):
         """Dead kangaroos draw fresh ones (Kangaroo.cpp:467-471).
 
         Distances are drawn per reset in order (RNG-stream-identical to
         the reference's per-lane CreateHerd(1) calls); the positions are
         rebuilt in one batch and scattered in one write per array.  A
-        lane reset twice in one batch keeps its last draw.
+        lane reset twice in one batch keeps its last draw.  In symmetry
+        mode a fresh lane starts normalized, in class 0.
         """
-        r = herd_mod.draw_start_words(len(lanes), self.range_power, rng)
+        sym = self.opts.symmetry
+        r = herd_mod.draw_start_words(len(lanes), self.range_power, rng, sym)
         last = {lane: i for i, lane in enumerate(lanes)}
         keep = sorted(last.values())
         types = np.array([lanes[i] % 2 for i in keep])
         npx, npy, nd = herd_mod.herd_from_draws(
             r[keep], types, self.width_div2, self.key_to_search,
-            device=px.device,
+            device=px.device, symmetry=sym,
         )
         idx = torch.tensor([lanes[i] for i in keep], device=px.device)
         px[:, idx] = npx
         py[:, idx] = npy
         d[:, idx] = nd
-        return px, py, d
+        if sym:
+            symclass[idx] = 0
+        return px, py, d, symclass
 
     def _output(self, res):
         """Append the solved key (reference: Output, Kangaroo.cpp:176-213)."""

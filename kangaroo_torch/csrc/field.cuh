@@ -238,4 +238,45 @@ KT_HD void add_u128(uint32_t d[4], const uint32_t e[4]) {
     }
 }
 
+// ---- symmetry walk: class normalization (y <= (p-1)/2) ----
+
+// 1 when canonical y > (p-1)/2, else 0: y + (2^256 - (p+1)/2) carries
+// out of 2^256.  The addend is 2^255 + 2^31 + 488: words 0 and 7 only.
+KT_HD uint32_t fe_is_high(const uint32_t y[8]) {
+    uint64_t c = (uint64_t)y[0] + 0x800001E8u;
+    c >>= 32;
+    for (int i = 1; i < 7; ++i) c = (c + y[i]) >> 32;
+    c += (uint64_t)y[7] + 0x80000000u;
+    return (uint32_t)(c >> 32);
+}
+
+// r = (p - y) mod 2^256: the canonical negation for canonical 0 < y < p.
+KT_HD void fe_neg(uint32_t r[8], const uint32_t y[8]) {
+    uint64_t br = 0;
+    for (int i = 0; i < 8; ++i) {
+        const uint32_t pw = i == 0 ? 0xFFFFFC2Fu
+                          : i == 1 ? 0xFFFFFFFEu : 0xFFFFFFFFu;
+        const uint64_t d = (uint64_t)pw - y[i] - br;
+        r[i] = (uint32_t)d;
+        br = d >> 63;
+    }
+}
+
+// d = -d mod 2^128 (two's complement) on 4-word signed distances.
+KT_HD void neg_u128(uint32_t d[4]) {
+    uint64_t c = 1;
+    for (int i = 0; i < 4; ++i) {
+        c += (uint32_t)~d[i];
+        d[i] = (uint32_t)c;
+        c >>= 32;
+    }
+}
+
+// r[w] = m ? a[w] : b[w] for a mask m of all ones or all zeros: a word
+// select, so that lanes of a warp that differ in m do not diverge.
+KT_HD void sel_words(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                     int nw, uint32_t m) {
+    for (int w = 0; w < nw; ++w) r[w] = (a[w] & m) | (b[w] & ~m);
+}
+
 }  // namespace kt

@@ -2,10 +2,21 @@
 // one launch, with distinguished-point capture into per-lane slots.
 //
 // Replaces the TPU kernel kangaroo_tpu/ops/jump_pallas.py:471
-// (jump_steps_with_dp, plain branch :378-403 and slot capture
-// :417-433).  The per-thread body lives in walk.cuh; this file adds the
-// shared-memory jump table and the C entry point bound with ctypes by
+// (jump_steps_with_dp: plain branch :378-403, slot capture :417-433,
+// and the symmetry branch -- eager class normalization :406-415, the
+// deferred-flip walk :331-377 and its XLA epilogue :585-607, whose
+// output contract the symmetry kernel computes eagerly).  The
+// per-thread body lives in walk.cuh, a template on the symmetry mode;
+// this file instantiates it as two kernels, so that the plain kernel's
+// code is untouched by the symmetry branch, and adds the shared-memory
+// jump table and the C entry point bound with ctypes by
 // kangaroo_torch/ops/jump_cuda.py.
+//
+// The TPU deferred the symmetry flips to the window's end because a
+// per-step canonicalize, compare and two wide selects cost its vector
+// unit much; here they are ~80 integer adds and logic ops per lane and
+// step, no multiply, against ~1030 multiply-adds, so the kernel
+// normalizes eagerly.
 //
 // What bounds it on this card.  The function itself needs ~1030 32-bit
 // integer multiply-add issue slots per jump (ops/jump_cuda.py counts
@@ -15,17 +26,18 @@
 // and next to nothing of
 // device memory.  This design adds its own traffic: it re-streams the
 // limb state and the prefix products through device memory every step,
-// 448 B per lane and step (walk.cuh), a floor above the multiply-add
-// bound at 3.35 TB/s.  It shares one inversion across GROUP lanes
-// (Montgomery's trick), keeps the jump table in shared memory, and
-// coalesces each limb row across the warp; holding the state in
-// registers across steps is later work.
+// 448 B per lane and step (460 B in symmetry mode, walk.cuh), a floor
+// above the multiply-add bound at 3.35 TB/s.  It shares one inversion
+// across GROUP lanes (Montgomery's trick), keeps the jump table in
+// shared memory, and coalesces each limb row across the warp; holding
+// the state in registers across steps is later work.
 #include <cuda_runtime.h>
 
 #include "walk.cuh"
 
 namespace {
 
+template <bool SYM>
 __global__ void __launch_bounds__(kt::THREADS)
 kt_jump_kernel(kt::WalkArgs a, const int32_t* __restrict__ jx,
                const int32_t* __restrict__ jy,
@@ -35,7 +47,7 @@ kt_jump_kernel(kt::WalkArgs a, const int32_t* __restrict__ jx,
         kt::pack_table_word(&tb, jx, jy, jd, k);
     __syncthreads();
     uint32_t acc[kt::GROUP][8];  // prefix products (local memory)
-    kt::walk_thread(a, tb, blockIdx.x, threadIdx.x, acc);
+    kt::walk_thread<SYM>(a, tb, blockIdx.x, threadIdx.x, acc);
 }
 
 }  // namespace
@@ -45,12 +57,13 @@ extern "C" {
 // Lanes per block: n must be a multiple of this.
 int kt_lane_quantum() { return kt::LANES; }
 
-// Launch one window on `stream` (no synchronization).  Returns the
+// Launch one window on `stream` (no synchronization): the symmetry
+// kernel when `symclass` is not null, else the plain one.  Returns the
 // cudaError_t of the launch (0 on success).
 int kt_jump_steps(void* px, void* py, void* d, const void* jx,
                   const void* jy, const void* jd, const void* masks, int n,
                   int nb_run, int slots, void* count, void* dpx, void* dpd,
-                  void* dstep, void* stream) {
+                  void* dstep, void* symclass, void* stream) {
     if (n <= 0 || n % kt::LANES != 0 || nb_run <= 0 || slots <= 0)
         return (int)cudaErrorInvalidValue;
     kt::WalkArgs a;
@@ -65,10 +78,17 @@ int kt_jump_steps(void* px, void* py, void* d, const void* jx,
     a.dpx = static_cast<int32_t*>(dpx);
     a.dpd = static_cast<int32_t*>(dpd);
     a.dstep = static_cast<int32_t*>(dstep);
-    kt_jump_kernel<<<n / kt::LANES, kt::THREADS, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-        a, static_cast<const int32_t*>(jx), static_cast<const int32_t*>(jy),
-        static_cast<const int32_t*>(jd));
+    a.symclass = static_cast<int32_t*>(symclass);
+    const auto tx = static_cast<const int32_t*>(jx);
+    const auto ty = static_cast<const int32_t*>(jy);
+    const auto td = static_cast<const int32_t*>(jd);
+    const auto st = static_cast<cudaStream_t>(stream);
+    if (symclass)
+        kt_jump_kernel<true><<<n / kt::LANES, kt::THREADS, 0, st>>>(a, tx, ty,
+                                                                   td);
+    else
+        kt_jump_kernel<false><<<n / kt::LANES, kt::THREADS, 0, st>>>(a, tx,
+                                                                    ty, td);
     return (int)cudaGetLastError();
 }
 

@@ -13,12 +13,22 @@
 // d += qd mod 2^128; then the DP test on x limbs 12..15 and the capture
 // into slot `count` while count < slots.
 //
+// Symmetry mode (SYM, the -sym walk over classes {P, -P}): jmp =
+// (x & 15) | (symclass << 4); after the add, y3 is made canonical and,
+// where y3 > (p-1)/2, replaced by p - y3 while the signed 128-bit
+// distance is negated and the class toggled; the DP test and capture
+// see the normalized point and distance.  Both passes read the lane's
+// class once per step, and only the backward pass writes the new one,
+// after both have used the old.  The normalization is word selects, so
+// a warp whose lanes flip differently does not diverge.
+//
 // Memory traffic of this design, per lane and step: the forward pass
 // reads x (64 B) and writes the prefix product (32 B, local memory);
 // the backward pass reads x, y, d and the prefix product (192 B) and
 // writes x, y, d (160 B): 448 B, re-streamed every step.  A thread's
 // prefix products (GROUP x 32 B) do not fit in L1 across the resident
-// blocks, so most of that goes to device memory.
+// blocks, so most of that goes to device memory.  Symmetry mode adds
+// the class: read in both passes and written in one, 12 B.
 //
 // The grouped inversion is exact, so canonical x3 is the same whatever
 // batching scheme computes it -- with one exception: a lane with dx = 0
@@ -86,10 +96,22 @@ struct WalkArgs {
     int32_t* dpx;    // (slots, 10, n)
     int32_t* dpd;    // (slots, 8, n)
     int32_t* dstep;  // (slots, n)
+    int32_t* symclass;  // (n,) in/out, 0 or 1; symmetry mode only
 };
+
+// Jump index of a lane: x mod 32, or in symmetry mode x mod 16 plus 16
+// times the lane's class.
+template <bool SYM>
+KT_HD int jump_index(const uint32_t x[8], uint32_t sc) {
+    if constexpr (SYM)
+        return (int)((x[0] & (NB_JUMP / 2 - 1)) | ((sc & 1u) << 4));
+    else
+        return (int)(x[0] & (NB_JUMP - 1));
+}
 
 // The whole launch window (nb_run steps) for thread t of block b.
 // `acc` is the thread's scratch for the GROUP prefix products.
+template <bool SYM>
 KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
                        int t, uint32_t (*acc)[8]) {
     const uint32_t mlo = (uint32_t)a.masks[0] | ((uint32_t)a.masks[1] << 16);
@@ -102,7 +124,8 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
         for (int g = 0; g < GROUP; ++g) {
             const size_t lane = base + (size_t)g * THREADS;
             load_words(x, 8, a.px, n, lane);
-            const int j = x[0] & (NB_JUMP - 1);
+            const uint32_t sc = SYM ? (uint32_t)a.symclass[lane] : 0u;
+            const int j = jump_index<SYM>(x, sc);
             for (int w = 0; w < 8; ++w) q[w] = tb.x[w][j];
             fe_sub(dx, q, x);
             if (g == 0)
@@ -119,7 +142,8 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
             load_words(x, 8, a.px, n, lane);
             load_words(y, 8, a.py, n, lane);
             load_words(dd, 4, a.d, n, lane);
-            const int j = x[0] & (NB_JUMP - 1);
+            const uint32_t sc = SYM ? (uint32_t)a.symclass[lane] : 0u;
+            const int j = jump_index<SYM>(x, sc);
             for (int w = 0; w < 8; ++w) {
                 q[w] = tb.x[w][j];
                 qy[w] = tb.y[w][j];
@@ -142,6 +166,18 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
             fe_mul(y3, lam, t1);
             fe_sub(y3, y3, qy);
             add_u128(dd, qd);
+            if constexpr (SYM) {
+                fe_canon(y3);
+                const uint32_t high = fe_is_high(y3);
+                const uint32_t m = 0u - high;
+                uint32_t ny[8], nd[4];
+                fe_neg(ny, y3);
+                sel_words(y3, ny, y3, 8, m);
+                for (int w = 0; w < 4; ++w) nd[w] = dd[w];
+                neg_u128(nd);
+                sel_words(dd, nd, dd, 4, m);
+                a.symclass[lane] = (int32_t)(sc ^ high);
+            }
             store_words(a.px, x3, 8, n, lane);
             store_words(a.py, y3, 8, n, lane);
             store_words(a.d, dd, 4, n, lane);

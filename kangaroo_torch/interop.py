@@ -2,9 +2,10 @@
 
 The JAX package holds limbs and counts as uint32 arrays; the port holds
 the same layout as int32 tensors (every limb is below 2^16).  These two
-functions carry any named set of them -- the herd (px, py, d), the jump
-tables (jx, jy, jd), the DP masks, the DP slot outputs (count, dpx, dpd,
-step) -- across, so both packages compute on identical inputs.
+functions carry any named set of them -- the herd (px, py, d), the
+symmetry walk's classes (symclass), the jump tables (jx, jy, jd), the DP
+masks, the DP slot outputs (count, dpx, dpd, step) -- across, so both
+packages compute on identical inputs.
 """
 
 from __future__ import annotations

@@ -224,3 +224,37 @@ def add_u128(d: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """(d + e) mod 2^128 on (8, N) limb vectors (device distances)."""
     limbs, _ = _exact(d.to(_I64) + e.to(_I64))
     return limbs.to(torch.int32)
+
+
+def _plus_one(x: torch.Tensor) -> torch.Tensor:
+    x = x.clone()
+    x[0] += 1
+    return x
+
+
+def neg_u128(d: torch.Tensor) -> torch.Tensor:
+    """Two's-complement negate mod 2^128 on (8, N) limb vectors (the
+    signed distances of the symmetry walk): ~d + 1."""
+    limbs, _ = _exact(_plus_one(M16 ^ d.to(_I64)))
+    return limbs.to(torch.int32)
+
+
+# y is in the high symmetry class iff canonical y > (p-1)/2, i.e. iff
+# y + (2^256 - (p+1)/2) carries out of 2^256.
+_HALF_TEST = (1 << 256) - ((P + 1) >> 1)
+
+
+def y_is_high(y: torch.Tensor) -> torch.Tensor:
+    """(N,) int32, 1 where canonical y > (p-1)/2: the lane's point is
+    replaced by its negation, which keeps the smaller y (the class
+    representative of {P, -P})."""
+    _, o = _exact(y.to(_I64) + _limb_col(_HALF_TEST, 16, y.device))
+    return o.to(torch.int32)
+
+
+def neg_y(y: torch.Tensor) -> torch.Tensor:
+    """(p - y) mod 2^256 on (16, N) limbs: for canonical 0 < y < p the
+    canonical negation."""
+    limbs, _ = _exact(_plus_one(_limb_col(P, 16, y.device)
+                                + (M16 ^ y.to(_I64))))
+    return limbs.to(torch.int32)

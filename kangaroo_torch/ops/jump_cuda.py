@@ -1,9 +1,10 @@
 """The walk on the card: wrapper of the CUDA kernel `csrc/jump_kernel.cu`.
 
 Replaces the TPU kernel kangaroo_tpu/ops/jump_pallas.py:471
-(`jump_steps_with_dp`, plain branch :378-403 and slot capture :417-433)
-with one hand-written CUDA C++ kernel for sm_90a, built by nvcc at first
-use and bound with ctypes.
+(`jump_steps_with_dp`: plain branch :378-403, slot capture :417-433,
+symmetry branch :331-377, :406-415 and its epilogue :585-607) with one
+hand-written CUDA C++ kernel for sm_90a in two instantiations, plain
+and symmetry, built by nvcc at first use and bound with ctypes.
 
 What bounds it on an H100.  The function needs ~1030 32-bit integer
 multiply-add issue slots per jump (`imad_per_jump`) and next to no
@@ -19,7 +20,11 @@ serialize).  It pays for its simplicity in traffic: it re-streams the
 limb state and the prefix products through device memory every step,
 `STATE_BYTES_PER_JUMP` = 448 B per lane and step, a floor
 (`design_traffic_ms`) above the multiply-add bound.  Holding the state
-in registers across steps is later work.
+in registers across steps is later work.  The symmetry kernel
+normalizes each lane's class eagerly every step (no multiply: a
+canonicalize, a compare, a conditional p - y and 128-bit negate) and
+streams the lane's class as well, `SYM_STATE_BYTES` more per lane and
+step.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version `jump_ref.jump_steps_with_dp`.
@@ -37,8 +42,10 @@ import torch
 from ..utils.build import build_shared
 from . import jump_ref
 
-#: launches of the walk kernel in this process
+#: launches of the plain walk kernel in this process
 LAUNCHES = 0
+#: launches of the symmetry walk kernel in this process
+SYM_LAUNCHES = 0
 
 # Geometry of the kernel (THREADS threads x GROUP lanes per block,
 # walk.cuh); the library reports its own and load() checks it.
@@ -59,8 +66,11 @@ INV_SQRS, INV_MULS = 255, 15
 # per SM per clock), i.e. half of 67 TFLOP/s / 2 FLOP per FMA.
 IMAD_PEAK = 67e12 / 2 / 2
 HBM_RATE = 3.35e12  # bytes/s, H100 SXM data sheet
-# Device-memory bytes this design moves per lane and step (walk.cuh).
+# Device-memory bytes this design moves per lane and step (walk.cuh),
+# and what the symmetry kernel adds: the lane's class, read in both
+# passes and written in one.
 STATE_BYTES_PER_JUMP = 448
+SYM_STATE_BYTES = 12
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _lock = threading.Lock()
@@ -71,29 +81,34 @@ def imad_per_jump() -> float:
     """IMAD issue slots per lane per jump, counted from the source: per
     group of G lanes, 3 (G - 1) prefix and unwind multiplies, one
     inversion, and per lane a multiply each for lam and y3 and a
-    squaring for lam^2."""
+    squaring for lam^2.  The symmetry kernel's class normalization
+    adds no multiply."""
     muls = 3 * (GROUP - 1) + INV_MULS + 2 * GROUP
     sqrs = INV_SQRS + GROUP
     return (muls * MUL_IMAD + sqrs * SQR_IMAD) / GROUP
 
 
-def bound_ms(n: int, nb_run: int, slots: int) -> tuple:
+def bound_ms(n: int, nb_run: int, slots: int,
+             symmetry: bool = False) -> tuple:
     """Least time for one launch of n lanes x nb_run jumps on an H100
     SXM: (ms, "operations" or "bytes").  The bytes are the function's own
-    need: the herd and masks read once, herd and slot outputs written
-    once."""
+    need: the herd (and in symmetry mode the class row) read once, herd
+    and slot outputs written once."""
     ops_s = n * nb_run * imad_per_jump() / IMAD_PEAK
-    rows_in, rows_out = 16 + 16 + 8, 16 + 16 + 8 + 1 + slots * (10 + 8 + 1)
+    sc = int(symmetry)
+    rows_in = 16 + 16 + 8 + sc
+    rows_out = 16 + 16 + 8 + sc + 1 + slots * (10 + 8 + 1)
     bytes_s = (rows_in + rows_out) * 4 * n / HBM_RATE
     if ops_s >= bytes_s:
         return ops_s * 1e3, "operations"
     return bytes_s * 1e3, "bytes"
 
 
-def design_traffic_ms(n: int, nb_run: int) -> float:
+def design_traffic_ms(n: int, nb_run: int, symmetry: bool = False) -> float:
     """The traffic floor of this design (not of the function): its
     per-step state streaming over the device-memory rate, in ms."""
-    return n * nb_run * STATE_BYTES_PER_JUMP / HBM_RATE * 1e3
+    per = STATE_BYTES_PER_JUMP + (SYM_STATE_BYTES if symmetry else 0)
+    return n * nb_run * per / HBM_RATE * 1e3
 
 
 def build() -> Path:
@@ -118,7 +133,7 @@ def load() -> ctypes.CDLL:
             lib.kt_jump_steps.restype = ctypes.c_int
             lib.kt_jump_steps.argtypes = (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * 5
+                + [ctypes.c_void_p] * 6
             )
             lib.kt_error_string.restype = ctypes.c_char_p
             lib.kt_error_string.argtypes = [ctypes.c_int]
@@ -138,22 +153,25 @@ def _check(t: torch.Tensor, name: str, shape, device) -> None:
 
 
 def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
-                       slots: int = 2, symmetry: bool = False):
-    """nb_run jumps per lane; returns (px, py, d, count, dpx, dpd, step).
+                       slots: int = 2, symmetry: bool = False,
+                       symclass: Optional[torch.Tensor] = None):
+    """nb_run jumps per lane; returns (px, py, d, count, dpx, dpd, step),
+    and symclass last in symmetry mode.
 
     Same contract as `jump_ref.jump_steps_with_dp` (bit-equal px, d,
-    count and DP slots; py equal mod p).  On the card the herd is
-    updated IN PLACE: the returned px/py/d are the input tensors.  The
-    slot outputs are fresh zeroed tensors.  The launch goes on the
-    current stream and does not synchronize.
+    count, DP slots and symclass; py equal mod p, and canonical in
+    symmetry mode).  On the card the herd and the symmetry class
+    (zeros when symclass is None) are updated IN PLACE: the returned
+    px/py/d/symclass are the input tensors.  The slot outputs are fresh
+    zeroed tensors.  The launch goes on the current stream and does not
+    synchronize.
     """
-    if symmetry:
-        raise NotImplementedError("symmetry walk: not yet ported")
     if not px.is_cuda:
         return jump_ref.jump_steps_with_dp(
-            px, py, d, jx, jy, jd, dp_masks, nb_run=nb_run, slots=slots
+            px, py, d, jx, jy, jd, dp_masks, nb_run=nb_run, slots=slots,
+            symmetry=symmetry, symclass=symclass,
         )
-    global LAUNCHES
+    global LAUNCHES, SYM_LAUNCHES
     n = px.shape[1]
     dev = px.device
     if n % LANE_QUANTUM:
@@ -162,11 +180,16 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
     if not 0 < nb_run < MAX_NB_RUN or slots < 1:
         raise ValueError(f"nb_run must be in [1, {MAX_NB_RUN}) and slots "
                          f">= 1, got {nb_run}, {slots}")
-    for t, name, shape in (
+    if symmetry and symclass is None:
+        symclass = torch.zeros((n,), dtype=torch.int32, device=dev)
+    checks = [
         (px, "px", (16, n)), (py, "py", (16, n)), (d, "d", (8, n)),
         (jx, "jx", (16, 32)), (jy, "jy", (16, 32)), (jd, "jd", (8, 32)),
         (dp_masks, "dp_masks", (4,)),
-    ):
+    ]
+    if symmetry:
+        checks.append((symclass, "symclass", (n,)))
+    for t, name, shape in checks:
         _check(t, name, shape, dev)
     count = torch.zeros((n,), dtype=torch.int32, device=dev)
     dpx = torch.zeros((slots, jump_ref.DPX_ROWS, n), dtype=torch.int32,
@@ -178,11 +201,15 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
         px.data_ptr(), py.data_ptr(), d.data_ptr(), jx.data_ptr(),
         jy.data_ptr(), jd.data_ptr(), dp_masks.data_ptr(), n, nb_run, slots,
         count.data_ptr(), dpx.data_ptr(), dpd.data_ptr(), step.data_ptr(),
+        symclass.data_ptr() if symmetry else None,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if err:
         raise RuntimeError(
             f"walk kernel launch failed: {lib.kt_error_string(err).decode()}"
         )
+    if symmetry:
+        SYM_LAUNCHES += 1
+        return px, py, d, count, dpx, dpd, step, symclass
     LAUNCHES += 1
     return px, py, d, count, dpx, dpd, step

@@ -1,12 +1,17 @@
 """Plain PyTorch kangaroo walk: the plain version of the CUDA kernel.
 
-Same semantics and returns as kangaroo_tpu/ops/jump_ref.py (plain
-mode), which in turn match the reference C++ walk (Kangaroo.cpp:379-433):
+Same semantics and returns as kangaroo_tpu/ops/jump_ref.py, which in
+turn match the reference C++ walk (Kangaroo.cpp:379-433):
 
     jmp   = px.bits64[0] %% NB_JUMP            (low 5 bits of x)
     (px,py) += jumpPoint[jmp]                  (batched affine add)
     dist  += jumpDistance[jmp]                 (128-bit device add)
     DP if top dpSize bits of x are zero        (IsDP, Kangaroo.cpp:148)
+
+Symmetry mode walks equivalence classes {P, -P}: jmp = x mod 16 +
+16 * symClass, and after each add the point is normalized to the
+smaller y (canonical, <= (p-1)/2); a lane that flips negates its signed
+128-bit distance and toggles its class (Kangaroo.cpp:381-399, 422-428).
 
 It serves the CPU path and the tests, and `chip_smoke.py` holds the
 kernel against it on the card; the solver never calls it directly (see
@@ -50,9 +55,14 @@ def is_dp(px: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     return ((px[12:16] & masks[:, None]) == 0).all(0)
 
 
-def select_jump(px, jx, jy, jd):
-    """Gather per-lane jump point/distance by x mod NB_JUMP."""
-    jmp = (px[0] & (NB_JUMP - 1)).long()
+def select_jump(px, jx, jy, jd, symclass=None):
+    """Gather per-lane jump point/distance by x mod NB_JUMP, or in
+    symmetry mode by x mod 16 + 16 * symclass (a half-table per class)."""
+    if symclass is None:
+        jmp = px[0] & (NB_JUMP - 1)
+    else:
+        jmp = (px[0] & (NB_JUMP // 2 - 1)) + symclass * (NB_JUMP // 2)
+    jmp = jmp.long()
     return jx[:, jmp], jy[:, jmp], jd[:, jmp]
 
 
@@ -72,25 +82,40 @@ def affine_add_walk(px, py, qx, qy):
     return x3, y3
 
 
-def jump_step(px, py, d, jx, jy, jd):
-    """One batched kangaroo jump for every lane."""
-    qx, qy, qd = select_jump(px, jx, jy, jd)
+def jump_step(px, py, d, jx, jy, jd, symclass=None):
+    """One batched kangaroo jump for every lane.
+
+    With symclass (symmetry mode) the result is normalized into its
+    class: y canonical and <= (p-1)/2; a flipped lane negates its
+    distance and toggles its class.  Returns (px, py, d[, symclass]).
+    """
+    qx, qy, qd = select_jump(px, jx, jy, jd, symclass)
     nx, ny = affine_add_walk(px, py, qx, qy)
-    return nx, ny, field.add_u128(d, qd)
+    nd = field.add_u128(d, qd)
+    if symclass is None:
+        return nx, ny, nd
+    ny = field.canonicalize(ny)
+    high = field.y_is_high(ny)
+    flip = (high == 1)[None, :]
+    ny = torch.where(flip, field.neg_y(ny), ny)
+    nd = torch.where(flip, field.neg_u128(nd), nd)
+    return nx, ny, nd, symclass ^ high
 
 
 def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
-                       slots: int = 2, symmetry: bool = False):
+                       slots: int = 2, symmetry: bool = False,
+                       symclass=None):
     """nb_run jumps; record up to `slots` DP hits per lane.
 
-    Returns (px, py, d, count, dpx, dpd, step): dpx (slots, 10, N) and
-    dpd (slots, 8, N) hold the x / device-distance limbs of the first
-    `slots` hits per lane, step (slots, N) the step index of each hit
-    within the window, count (N,) all hits (those beyond the slots are
-    counted, not stored).  All int32.
+    Returns (px, py, d, count, dpx, dpd, step[, symclass]): dpx
+    (slots, 10, N) and dpd (slots, 8, N) hold the x / device-distance
+    limbs of the first `slots` hits per lane, step (slots, N) the step
+    index of each hit within the window, count (N,) all hits (those
+    beyond the slots are counted, not stored).  All int32.  Symmetry
+    mode takes and returns the (N,) class of each lane (zeros when
+    symclass is None); its py is canonical and its captured distances
+    are the normalized ones.
     """
-    if symmetry:
-        raise NotImplementedError("symmetry walk: not yet ported")
     global CALLS
     CALLS += 1
     n = px.shape[1]
@@ -99,8 +124,13 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
     dpd = torch.zeros((slots, 8, n), dtype=torch.int32, device=dev)
     step = torch.zeros((slots, n), dtype=torch.int32, device=dev)
     count = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if symmetry and symclass is None:
+        symclass = torch.zeros((n,), dtype=torch.int32, device=dev)
     for i in range(nb_run):
-        px, py, d = jump_step(px, py, d, jx, jy, jd)
+        if symmetry:
+            px, py, d, symclass = jump_step(px, py, d, jx, jy, jd, symclass)
+        else:
+            px, py, d = jump_step(px, py, d, jx, jy, jd)
         hit = is_dp(px, dp_masks)
         for s in range(slots):
             sel = hit & (count == s)
@@ -108,4 +138,6 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
             dpd[s] = torch.where(sel[None, :], d, dpd[s])
             step[s] = torch.where(sel, i, step[s])
         count += hit.to(torch.int32)
+    if symmetry:
+        return px, py, d, count, dpx, dpd, step, symclass
     return px, py, d, count, dpx, dpd, step

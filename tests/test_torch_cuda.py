@@ -6,7 +6,8 @@ Imports only the port, so it runs on a machine without JAX:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 chip_smoke.py runs the same comparison at the main path's shape (2^22
-lanes x 1024 steps), the plain walk on 64 lanes of every block.
+lanes, 256 blocks), the plain walk on 64 lanes of every block, for the
+plain and the symmetry kernel.
 """
 
 import pytest
@@ -56,6 +57,40 @@ def test_kernel_matches_plain_on_card(card, dp_size, slots):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dp_size,slots", [(4, 2), (12, 3)],
+                         ids=["overflow", "sparse"])
+def test_sym_kernel_matches_plain_on_card(card, dp_size, slots):
+    """Symmetry kernel vs the plain symmetry walk, from a class input
+    that holds both classes: every output bit-equal (py is canonical)."""
+    rp = 64
+    n = 2 * jump_cuda.LANE_QUANTUM
+    state = herd.create_herd(n, rp, ((1 << rp) - 1) >> 1,
+                             curve.mul(0xDEADBEEF12345), 1, MT19937(5),
+                             device=card, symmetry=True)
+    tabs = [torch.from_numpy(a.astype("int32")).to(card)
+            for a in create_jump_table(rp, symmetry=True).as_arrays()]
+    masks = jump_ref.dp_limb_masks(dp_size, card)
+    gen = torch.Generator().manual_seed(5)
+    sc = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int32)
+    sc = sc.to(card)
+    launches = (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES)
+    k = jump_cuda.jump_steps_with_dp(*[t.clone() for t in state], *tabs,
+                                     masks, nb_run=32, slots=slots,
+                                     symmetry=True, symclass=sc.clone())
+    p = jump_ref.jump_steps_with_dp(*[t.clone() for t in state], *tabs,
+                                    masks, nb_run=32, slots=slots,
+                                    symmetry=True, symclass=sc.clone())
+    torch.cuda.synchronize()
+    assert (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES) == (
+        launches[0], launches[1] + 1)
+    for name, a, b in zip(NAMES + ("symclass",), k, p):
+        assert torch.equal(a, b), name
+    assert int(k[3].sum()) > 0
+    assert bool((k[3] > slots).any()) == (dp_size == 4)
+    assert 0 < int((k[7] != sc).sum()) < n
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     n = jump_cuda.LANE_QUANTUM
     z16 = torch.zeros((16, n), dtype=torch.int32, device=card)
@@ -72,3 +107,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
                                      nb_run=1 << 16)
     with pytest.raises(ValueError, match="int32"):
         jump_cuda.jump_steps_with_dp(z16.long(), z16, z8, t16, t16, t8, m)
+    with pytest.raises(ValueError, match="symclass"):
+        jump_cuda.jump_steps_with_dp(z16, z16, z8, t16, t16, t8, m,
+                                     symmetry=True, symclass=z8[0, :64])

@@ -3,7 +3,8 @@
 The batched scalar multiply is held against the JAX package's and the
 exact host curve.mul (as tests/test_ec.py does); for the same MT19937
 seed the port's herd must equal the JAX herd lane for lane (as
-tests/test_herd.py checks the JAX herd against its per-lane oracle).
+tests/test_herd.py checks the JAX herd against its per-lane oracle), in
+plain and in symmetry mode, and its jump tables the JAX tables.
 """
 
 import random
@@ -19,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from kangaroo_tpu.constants import N_ORDER, TAME  # noqa: E402
 from kangaroo_tpu.core import curve as jcurve, herd as jherd  # noqa: E402
+from kangaroo_tpu.core import jumptable as jjumptable  # noqa: E402
 from kangaroo_tpu.ops import ec as jec  # noqa: E402
 from kangaroo_tpu.utils.intutils import (  # noqa: E402
     ints_to_limbs_fast,
@@ -26,7 +28,7 @@ from kangaroo_tpu.utils.intutils import (  # noqa: E402
 )
 from kangaroo_tpu.utils.rng import MT19937 as JMT  # noqa: E402
 from kangaroo_torch import interop  # noqa: E402
-from kangaroo_torch.core import curve, herd  # noqa: E402
+from kangaroo_torch.core import curve, herd, jumptable  # noqa: E402
 from kangaroo_torch.ops import ec  # noqa: E402
 from kangaroo_torch.utils.rng import MT19937  # noqa: E402
 
@@ -89,6 +91,49 @@ def test_create_herd_equals_jax_herd(first_type):
     np.testing.assert_array_equal(got["px"], np.asarray(jpx))
     np.testing.assert_array_equal(got["py"], np.asarray(jpy))
     np.testing.assert_array_equal(got["d"], np.asarray(jd))
+
+
+@pytest.mark.parametrize("first_type", [TAME, 1])
+def test_create_sym_herd_equals_jax_herd(first_type):
+    """Symmetry herd: draws of range_power - 1 bits, wild offset W/4,
+    signed distances, and start points normalized into their class
+    (lanes with y > (p-1)/2 take p - y and the negated distance)."""
+    nb, range_power = 96, 40
+    width_div2 = (1 << 39) - 5
+    kp = 0xDEADBEEF7
+    jpx, jpy, jd = jherd.create_herd(nb, range_power, width_div2,
+                                     jcurve.mul(kp), first_type, JMT(4321),
+                                     symmetry=True)
+    px, py, d = herd.create_herd(nb, range_power, width_div2, curve.mul(kp),
+                                 first_type, MT19937(4321), device="cpu",
+                                 symmetry=True)
+    got = interop.to_numpy_state(dict(px=px, py=py, d=d))
+    np.testing.assert_array_equal(got["px"], np.asarray(jpx))
+    np.testing.assert_array_equal(got["py"], np.asarray(jpy))
+    np.testing.assert_array_equal(got["d"], np.asarray(jd))
+    # some lanes were flipped (their distance sign differs from the
+    # draw's) and some carry negative distances
+    r = herd.draw_start_words(nb, range_power, MT19937(4321), symmetry=True)
+    rv = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in r]
+    wild = (np.arange(nb) + first_type) % 2 == 1
+    drawn = [v - (width_div2 >> 1) if w else v for v, w in zip(rv, wild)]
+    dv = [int(v) for v in limbs_to_ints_fast(got["d"])]
+    signed = [v - (1 << 128) if v >> 127 else v for v in dv]
+    flipped = [s == -t != 0 for s, t in zip(signed, drawn)]
+    assert all(s in (t, -t) for s, t in zip(signed, drawn))
+    assert 0 < sum(flipped) < nb
+    assert any(s < 0 for s in signed)
+
+
+@pytest.mark.parametrize("range_power,symmetry",
+                         [(32, False), (40, True), (64, True), (76, True)])
+def test_jump_tables_equal_jax(range_power, symmetry):
+    want = jjumptable.create_jump_table(range_power, symmetry=symmetry)
+    got = jumptable.create_jump_table(range_power, symmetry=symmetry)
+    assert got.distances == want.distances
+    assert (got.jump_bit, got.avg) == (want.jump_bit, want.avg)
+    for a, b in zip(got.as_arrays(), want.as_arrays()):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("range_power", [40, 64, 96, 125])

@@ -134,6 +134,30 @@ def test_add_u128_and_predicates():
     assert field.is_zero(z).tolist() == [True, False, False, True]
 
 
+def test_symmetry_helpers_vs_ints_and_jax():
+    """neg_u128, y_is_high and neg_y (the symmetry walk's class
+    normalization) against Python ints and the JAX package, with the
+    edges of the class boundary and of the signed distance."""
+    half = (P - 1) // 2
+    ys = [0, 1, half - 1, half, half + 1, half + 2, P - 2, P - 1]
+    ys += [v % P for v in POOL] + [v % P for v in _rand(400)]
+    high = field.y_is_high(t(ys))
+    assert high.dtype == torch.int32
+    assert high.tolist() == [int(y > half) for y in ys]
+    negy = ints(field.neg_y(t(ys)))
+    assert negy == [(P - y) % (1 << 256) for y in ys]
+    assert negy[1:] == [P - y for y in ys[1:]]        # canonical for y > 0
+    ds = [0, 1, 1 << 127, (1 << 127) - 1, (1 << 128) - 1] + _rand(300, 128)
+    negd = ints(field.neg_u128(t(ds, 8)))
+    assert negd == [(-v) % (1 << 128) for v in ds]
+    n = N_JAX
+    jy, jd = j(ys[:n]), j(ds[:n], 8)
+    assert high.tolist()[:n] == np.asarray(
+        jax.jit(jfield.y_is_high)(jy)).tolist()
+    assert negy[:n] == ints(jax.jit(jfield.neg_y)(jy))
+    assert negd[:n] == ints(jax.jit(jfield.neg_u128)(jd))
+
+
 def test_outputs_are_int32_limbs():
     for r in (field.addmod(t(A), t(B)), field.submod(t(A), t(B)),
               field.mulmod(t(A), t(B)), field.canonicalize(t(A))):

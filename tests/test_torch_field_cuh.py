@@ -6,7 +6,8 @@ interface, so here g++ builds the very same code for the CPU.  The field
 ops are held against Python ints, and the kernel body, run thread by
 thread on the host at the kernel's real geometry, against the JAX
 package's reference walk and the port's plain walk on the same inputs
-(bit-equal px, d, count and DP slots, py equal mod p).
+(bit-equal px, d, count and DP slots, py equal mod p), in plain and in
+symmetry mode (there also symclass, and py canonical).
 """
 
 import ctypes
@@ -51,8 +52,11 @@ def lib():
     for name in ("kt_fe_sqr_n", "kt_fe_inv_n", "kt_add_u128_n"):
         getattr(so, name).argtypes = [V, V, ctypes.c_int]
     so.kt_fe_canon_n.argtypes = [V, ctypes.c_int]
+    for name in ("kt_fe_is_high_n", "kt_fe_neg_n"):
+        getattr(so, name).argtypes = [V, V, ctypes.c_int]
+    so.kt_neg_u128_n.argtypes = [V, ctypes.c_int]
     so.kt_lane_quantum.restype = ctypes.c_int
-    so.kt_walk_host.argtypes = [V] * 7 + [ctypes.c_int] * 3 + [V] * 4
+    so.kt_walk_host.argtypes = [V] * 7 + [ctypes.c_int] * 3 + [V] * 5
     return so
 
 
@@ -112,7 +116,50 @@ def test_add_u128(lib):
     assert unwords(wd) == [(x + y) % (1 << 128) for x, y in zip(d, e)]
 
 
+def test_symmetry_helpers(lib):
+    """fe_is_high (y > (p-1)/2), fe_neg (p - y) and neg_u128 (128-bit
+    two's complement) against ints, with the class boundary's edges."""
+    half = (P - 1) // 2
+    ys = [0, 1, half - 1, half, half + 1, half + 2, P - 2, P - 1]
+    ys += [int.from_bytes(RS.bytes(32), "little") % P for _ in range(500)]
+    wy = words(ys)
+    hi = np.zeros(len(ys), np.uint32)
+    lib.kt_fe_is_high_n(hi.ctypes.data, wy.ctypes.data, len(ys))
+    assert hi.tolist() == [int(y > half) for y in ys]
+    r = np.zeros_like(wy)
+    lib.kt_fe_neg_n(r.ctypes.data, wy.ctypes.data, len(ys))
+    assert unwords(r) == [(P - y) % (1 << 256) for y in ys]
+    ds = [0, 1, 1 << 127, (1 << 127) - 1, (1 << 128) - 1]
+    ds += [int.from_bytes(RS.bytes(16), "little") for _ in range(500)]
+    wd = words(ds, 4)
+    lib.kt_neg_u128_n(wd.ctypes.data, len(ds))
+    assert unwords(wd) == [(-v) % (1 << 128) for v in ds]
+
+
 NAMES = ("px", "py", "d", "count", "dpx", "dpd", "step")
+KEYS = ("px", "py", "d", "jx", "jy", "jd", "masks")
+
+
+def _host_window(lib, st, nb_run, slots, symclass=None):
+    """One launch window of the kernel body on the host (plain mode, or
+    symmetry mode with a symclass); returns its outputs as tensors."""
+    n = st["px"].shape[1]
+    t = interop.from_numpy_state(st, "cpu")
+    hx, hy, hd, jx, jy, jd, masks = (t[k] for k in KEYS)
+    count = torch.zeros(n, dtype=torch.int32)
+    dpx = torch.zeros((slots, 10, n), dtype=torch.int32)
+    dpd = torch.zeros((slots, 8, n), dtype=torch.int32)
+    step = torch.zeros((slots, n), dtype=torch.int32)
+    sc = None if symclass is None else torch.from_numpy(
+        symclass.astype(np.int32))
+    rc = lib.kt_walk_host(
+        *(x.data_ptr() for x in (hx, hy, hd, jx, jy, jd, masks)),
+        n, nb_run, slots,
+        *(x.data_ptr() for x in (count, dpx, dpd, step)),
+        None if sc is None else sc.data_ptr())
+    assert rc == 0
+    out = (hx, hy, hd, count, dpx, dpd, step)
+    return out if sc is None else out + (sc,)
 
 
 @pytest.mark.parametrize("dp_size,slots", [(4, 2), (12, 3)],
@@ -130,24 +177,13 @@ def test_kernel_body_matches_plain_walk(lib, dp_size, slots):
     st = dict(px=px, py=py, d=d, jx=jx, jy=jy, jd=jd,
               masks=jref.dp_limb_masks(dp_size))
     jax_out = jref.jump_steps_with_dp(
-        *(jnp.asarray(st[k]) for k in ("px", "py", "d", "jx", "jy", "jd",
-                                       "masks")),
+        *(jnp.asarray(st[k]) for k in KEYS),
         nb_run=nb_run, inv_stop=64, slots=slots)
     t = interop.from_numpy_state(st, "cpu")
-    args = [t[k] for k in ("px", "py", "d", "jx", "jy", "jd", "masks")]
-    plain = jump_ref.jump_steps_with_dp(*[a.clone() for a in args],
+    plain = jump_ref.jump_steps_with_dp(*[t[k] for k in KEYS],
                                         nb_run=nb_run, slots=slots)
-    hx, hy, hd, jx, jy, jd, masks = args
-    count = torch.zeros(n, dtype=torch.int32)
-    dpx = torch.zeros((slots, 10, n), dtype=torch.int32)
-    dpd = torch.zeros((slots, 8, n), dtype=torch.int32)
-    step = torch.zeros((slots, n), dtype=torch.int32)
-    rc = lib.kt_walk_host(
-        *(x.data_ptr() for x in (hx, hy, hd, jx, jy, jd, masks)),
-        n, nb_run, slots,
-        *(x.data_ptr() for x in (count, dpx, dpd, step)))
-    assert rc == 0
-    got = (hx, hy, hd, count, dpx, dpd, step)
+    got = _host_window(lib, st, nb_run, slots)
+    count = got[3]
     want_jax = interop.from_numpy_state(
         {k: np.asarray(v) for k, v in zip(NAMES, jax_out)}, "cpu")
     for name, g, w, w2 in zip(NAMES, got, plain,
@@ -158,3 +194,40 @@ def test_kernel_body_matches_plain_walk(lib, dp_size, slots):
         assert torch.equal(g, w), f"{name} vs the plain walk"
     assert int(count.sum()) > 0
     assert bool((count > slots).any()) == (dp_size == 4)
+
+
+def test_sym_kernel_body_matches_plain_walk(lib):
+    """The symmetry kernel body at its real geometry, from a symclass
+    input that holds both classes, vs the JAX reference walk in
+    symmetry mode and the port's plain symmetry walk: px, py (both
+    canonical), d, count, every slot and symclass bit-equal.  Both
+    passes of the kernel index the table by the lane's class, and only
+    the backward pass writes the new one: a kernel that let the forward
+    pass see the new class would disagree here."""
+    n, nb_run, rp, dp_size, slots = jump_cuda.LANE_QUANTUM, 6, 64, 4, 2
+    wd2 = ((1 << rp) - 1) >> 1
+    px, py, d = jherd.create_herd(n, rp, wd2, jcurve.mul(0xDEADBEEF12345),
+                                  1, MT19937(8), symmetry=True)
+    jx, jy, jd = create_jump_table(rp, symmetry=True).as_arrays()
+    st = dict(px=px, py=py, d=d, jx=jx, jy=jy, jd=jd,
+              masks=jref.dp_limb_masks(dp_size))
+    sc = np.random.RandomState(0x5C).randint(0, 2, n).astype(np.uint32)
+    jax_out = jref.jump_steps_with_dp(
+        *(jnp.asarray(st[k]) for k in KEYS), nb_run=nb_run, inv_stop=64,
+        slots=slots, symmetry=True, symclass=jnp.asarray(sc))
+    t = interop.from_numpy_state(dict(st, sc=sc), "cpu")
+    plain = jump_ref.jump_steps_with_dp(
+        *[t[k] for k in KEYS], nb_run=nb_run, slots=slots, symmetry=True,
+        symclass=t["sc"])
+    got = _host_window(lib, st, nb_run, slots, symclass=sc)
+    names = NAMES + ("symclass",)
+    want_jax = interop.from_numpy_state(
+        {k: np.asarray(v) for k, v in zip(names, jax_out)}, "cpu")
+    for name, g, w in zip(names, got, plain):
+        assert torch.equal(g, want_jax[name]), f"{name} vs JAX jump_ref"
+        assert torch.equal(g, w), f"{name} vs the plain walk"
+    count, new_sc = got[3], got[7]
+    assert int(count.sum()) > 0 and bool((count > slots).any())
+    # the window flipped some lanes' classes and kept others
+    flipped = int((new_sc != torch.from_numpy(sc.astype(np.int32))).sum())
+    assert 0 < flipped < n

@@ -6,7 +6,11 @@ package, carried across with interop.from_numpy_state; the JAX
 reference walk (under jit on the CPU) and the Pallas kernel (interpret
 mode, as tests/test_lockstep.py runs it) run the same window.  The
 contract of core/check.py:330-333: px, d, count and every DP slot
-bit-equal, py equal mod p.  One case overflows the capture slots.
+bit-equal, py equal mod p.  One case overflows the capture slots.  The
+symmetry walk also returns symclass, and its py is canonical: there
+every output is compared bit for bit, against the JAX reference walk and
+against the Pallas kernel in both its eager (n <= WALKW) and its
+deferred-flip (n > WALKW) branch.
 """
 
 from functools import lru_cache
@@ -34,25 +38,42 @@ RANGE_POWER = 64
 
 
 @lru_cache(maxsize=None)
-def _herd_and_tables(n, seed=99):
-    wd2 = ((1 << RANGE_POWER) - 1) >> 1
-    px, py, d = jherd.create_herd(n, RANGE_POWER, wd2,
+def _herd_and_tables(n, seed=99, symmetry=False, range_power=RANGE_POWER):
+    wd2 = ((1 << range_power) - 1) >> 1
+    px, py, d = jherd.create_herd(n, range_power, wd2,
                                   jcurve.mul(0xDEADBEEF12345), 0,
-                                  MT19937(seed))
-    jx, jy, jd = create_jump_table(RANGE_POWER).as_arrays()
+                                  MT19937(seed), symmetry=symmetry)
+    jx, jy, jd = create_jump_table(range_power, symmetry).as_arrays()
     return dict(px=px, py=py, d=d, jx=jx, jy=jy, jd=jd)
 
 
-def _inputs(n, dp_size):
-    return dict(_herd_and_tables(n), masks=jref.dp_limb_masks(dp_size))
+def _inputs(n, dp_size, **herd):
+    return dict(_herd_and_tables(n, **herd),
+                masks=jref.dp_limb_masks(dp_size))
 
 
-def _torch_walk(st, nb_run, slots):
+def _torch_walk(st, nb_run, slots, symclass=None):
     s = interop.from_numpy_state(st, "cpu")
+    sym = symclass is not None
     out = jump_ref.jump_steps_with_dp(
         s["px"], s["py"], s["d"], s["jx"], s["jy"], s["jd"], s["masks"],
-        nb_run=nb_run, slots=slots)
-    return interop.to_numpy_state(dict(zip(NAMES, out)))
+        nb_run=nb_run, slots=slots, symmetry=sym,
+        symclass=torch.from_numpy(symclass.astype(np.int32)) if sym else None)
+    return interop.to_numpy_state(
+        dict(zip(NAMES + (("symclass",) if sym else ()), out)))
+
+
+def _sym_start(n, seed):
+    """A symmetry herd and a seeded class input holding both classes."""
+    st = _herd_and_tables(n, seed=seed, symmetry=True, range_power=48)
+    sc = np.random.RandomState(seed).randint(0, 2, n).astype(np.uint32)
+    return st, sc
+
+
+def _assert_sym_equal(got, want):
+    for name in NAMES + ("symclass",):
+        np.testing.assert_array_equal(got[name], np.asarray(want[name]),
+                                      err_msg=name)
 
 
 def _assert_contract(got, want):
@@ -94,22 +115,63 @@ def test_plain_walk_matches_pallas_interpret():
     _assert_contract(got, dict(zip(NAMES, want)))
 
 
+@pytest.mark.parametrize("dp_size,slots", [(5, 4), (5, 1)],
+                         ids=["dp5", "overflow"])
+def test_sym_walk_matches_jax_ref(dp_size, slots):
+    n, nb_run = 256, 12
+    st, sc = _sym_start(n, 77)
+    st = dict(st, masks=jref.dp_limb_masks(dp_size))
+    got = _torch_walk(st, nb_run, slots, symclass=sc)
+    want = jref.jump_steps_with_dp(
+        *(jnp.asarray(st[k]) for k in ("px", "py", "d", "jx", "jy", "jd",
+                                       "masks")),
+        nb_run=nb_run, inv_stop=64, slots=slots, symmetry=True,
+        symclass=jnp.asarray(sc))
+    _assert_sym_equal(got, dict(zip(NAMES + ("symclass",), want)))
+    assert got["count"].sum() > 0
+    assert (got["count"] > slots).any() == (slots == 1)
+    assert 0 < (got["symclass"] != sc).sum() < n
+
+
+@pytest.mark.parametrize("n,nb_run", [(128, 12), (1024, 4)],
+                         ids=["eager", "deferred"])
+def test_sym_walk_matches_pallas_interpret(n, nb_run):
+    """The Pallas kernel normalizes eagerly at n <= WALKW and defers
+    the flips to its epilogue above (test_lockstep.py runs both)."""
+    assert (n > jump_pallas.WALKW) == (n == 1024)
+    st, sc = _sym_start(n, 31337)
+    st = dict(st, masks=jref.dp_limb_masks(4))
+    got = _torch_walk(st, nb_run, 2, symclass=sc)
+    want = jump_pallas.jump_steps_with_dp(
+        *(jnp.asarray(st[k]) for k in ("px", "py", "d", "jx", "jy", "jd",
+                                       "masks")),
+        nb_run=nb_run, block=n, interpret=True, symmetry=True,
+        symclass=jnp.asarray(sc))
+    _assert_sym_equal(got, dict(zip(NAMES + ("symclass",), want)))
+    assert got["count"].sum() > 0
+
+
 def test_cpu_tensor_takes_the_plain_walk():
     st = interop.from_numpy_state(_inputs(256, 4), "cpu")
-    calls, launches = jump_ref.CALLS, jump_cuda.LAUNCHES
+    calls = jump_ref.CALLS
+    launches = (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES)
     out = jump_cuda.jump_steps_with_dp(
         st["px"], st["py"], st["d"], st["jx"], st["jy"], st["jd"],
         st["masks"], nb_run=2, slots=3)
     assert jump_ref.CALLS == calls + 1
-    assert jump_cuda.LAUNCHES == launches
+    assert (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES) == launches
     n = 256
     assert [tuple(o.shape) for o in out] == [
         (16, n), (16, n), (8, n), (n,), (3, 10, n), (3, 8, n), (3, n)]
     assert all(o.dtype == torch.int32 for o in out)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        jump_cuda.jump_steps_with_dp(
-            st["px"], st["py"], st["d"], st["jx"], st["jy"], st["jd"],
-            st["masks"], symmetry=True)
+    # symmetry mode too; no class given means every lane in class 0
+    sym = jump_cuda.jump_steps_with_dp(
+        st["px"], st["py"], st["d"], st["jx"], st["jy"], st["jd"],
+        st["masks"], nb_run=2, slots=3, symmetry=True)
+    assert jump_ref.CALLS == calls + 2
+    assert (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES) == launches
+    assert len(sym) == 8 and tuple(sym[7].shape) == (n,)
+    assert sym[7].dtype == torch.int32 and int(sym[7].max()) <= 1
 
 
 def test_dp_masks_and_interop_round_trip():

@@ -3,11 +3,13 @@
 For the same seed and options the port's solver must fill its hash table
 exactly like the JAX solver (`backend="xla"`, one device) after a fixed
 number of ticks: the same herd, the same walk, the same pipelined drain
-(resets one tick late) and the same dead-lane redraws.  The CLI solves
-the in32 fixture on the CPU.
+(resets one tick late) and the same dead-lane redraws, in plain and in
+symmetry mode.  The CLI solves the in32 fixture on the CPU, with and
+without -sym.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -50,6 +52,32 @@ def test_hash_table_equals_jax_solver(seed, ticks):
         assert ts.stats.dead > 0
 
 
+@pytest.mark.parametrize("seed,ticks", [(12, 5), (14, 10)],
+                         ids=["dead-lane-resets", "solves"])
+def test_sym_hash_table_equals_jax_solver(seed, ticks):
+    """Symmetry mode: the recentred key, the signed distances and their
+    record encoding, the class carried through the ticks and reset to 0
+    on redrawn lanes.  Both seeds meet dead kangaroos; seed 14 solves at
+    tick 7."""
+    opts = dict(nb_kangaroo=512, dp_size=4, nb_run=16, seed=seed,
+                quiet=True, symmetry=True)
+    js = jsolver.KangarooSolver(jparse(IN32), jsolver.SolverOptions(
+        n_devices=1, backend="xla", **opts))
+    jres = js.solve(0, max_ticks=ticks)
+    ts = solver.KangarooSolver(parse_config_file(IN32),
+                               solver.SolverOptions(device="cpu", **opts))
+    tres = ts.solve(0, max_ticks=ticks)
+    assert ts.hash_table.export() == js.hash_table._export()
+    assert ts.hash_table.n_items() > 0 and ts.stats.dead > 0
+    assert (ts.stats.dead, ts.stats.lost, ts.stats.count) == (
+        js.stats.dead, js.stats.lost, js.stats.count)
+    assert (tres is None) == (jres is None) == (seed == 12)
+    if tres is not None:
+        assert (tres.private_key, tres.sign_info, tres.variant) == (
+            jres.private_key, jres.sign_info, jres.variant)
+        assert tres.private_key == 0xB862A62E
+
+
 def test_work_model_matches_jax():
     cfg = jparse(IN32)
     js = jsolver.KangarooSolver(cfg, jsolver.SolverOptions(
@@ -61,6 +89,22 @@ def test_work_model_matches_jax():
         assert ts.balanced_dp(nk, rate=3.5e6) == js.balanced_dp(nk, rate=3.5e6)
         for dp in (0.0, 5.0, 14.0):
             assert ts.compute_expected(dp, nk) == js.compute_expected(dp, nk)
+    # symmetry: the expected work carries the 2^-0.5 gain
+    jsym = jsolver.KangarooSolver(cfg, jsolver.SolverOptions(
+        nb_kangaroo=1 << 12, n_devices=1, quiet=True, symmetry=True))
+    tsym = solver.KangarooSolver(parse_config_file(IN32),
+                                 solver.SolverOptions(
+                                     nb_kangaroo=1 << 12, device="cpu",
+                                     quiet=True, symmetry=True))
+    for nk in (256, 1 << 22):
+        assert tsym.suggest_dp(nk) == jsym.suggest_dp(nk)
+        assert tsym.balanced_dp(nk, rate=3.5e6) == \
+            jsym.balanced_dp(nk, rate=3.5e6)
+        for dp in (0.0, 5.0, 14.0):
+            got = tsym.compute_expected(dp, nk)
+            assert got == jsym.compute_expected(dp, nk)
+            ratio = got[0] / ts.compute_expected(dp, nk)[0]
+            assert abs(ratio - 2 ** -0.5) < 1e-12
     for nb_run, dp, n in ((16, 4, 512), (1024, 14, 1 << 22), (64, 2, 4096)):
         assert solver.slots_for_window(nb_run, dp, n) == \
             jsolver.slots_for_window(nb_run, dp, n)
@@ -94,8 +138,17 @@ def test_cli_solves_in32_on_cpu():
     assert "Priv: 0xB862A62E" in r.stdout
 
 
+def test_cli_solves_in32_sym_on_cpu():
+    r = _cli("-device", "cpu", "-sym", IN32)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "Symmetry: on" in r.stdout
+    assert "Priv: 0xB862A62E" in r.stdout
+    # the result line carries the collision's variant and N/S sign
+    assert re.search(r"Key# 0 \[[0-3][NS]\]Pub:", r.stdout), r.stdout
+
+
 def test_cli_rejects_flags_not_yet_ported():
-    for flag in ("-sym", "-w", "-check", "-s"):
+    for flag in ("-wi", "-w", "-check", "-s"):
         r = _cli(flag, "x", IN32, timeout=120)
         assert r.returncode != 0
         assert "not yet ported" in r.stdout
