@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (kangaroo_torch).
 
-Drives the port's main path on one CUDA card and holds its walk kernel
-against the plain PyTorch version, phase by phase; any fault raises and
-the exit code is non-zero.  Run from the repository root:
+Drives the port's main paths on one CUDA card -- the solve, the probe
+entry points, -check -- and holds every kernel against its plain
+PyTorch version, phase by phase; any fault raises and the exit code is
+non-zero.  Run from the repository root:
 
     python3 chip_smoke.py
 
 Phases:
   1. device: the card's name and power limit;
-  2. build: nvcc builds the walk kernels (plain and symmetry) from
-     csrc/ (set-up time), with ptxas's register and spill report;
+  2. build: nvcc builds the walk kernels (plain and symmetry) and the
+     probe kernels from csrc/, the two libraries at once (set-up time),
+     with ptxas's register and spill report and a hash of each walk
+     kernel's SASS (cuobjdump);
   3. plain kernel vs plain walk at the main path's shape: the kernel
      walks a 2^22-lane herd (256 blocks) once with slot overflow (dp 6,
-     2 slots, 512 steps) and once as the solver runs it (dp 14, 6 slots,
-     1024 steps); the plain walk runs the same window on 64 lanes of
+     2 slots, 256 steps) and once as the solver runs it (dp 14, 6 slots,
+     512 steps); the plain walk runs the same window on 64 lanes of
      every block (2^14 lanes, corners of each block's thread x group
      grid included), and the kernel once more on those 2^14 lanes alone.
      The walk is exact per lane, so px, d, count and every DP slot must
@@ -23,7 +26,7 @@ Phases:
      events;
   3s. symmetry kernel vs plain symmetry walk, the same way, on a
      2^22-lane symmetry herd after one symmetry window (so that the
-     class input holds both classes): dp 6, 2 slots, 512 steps, and
+     class input holds both classes): dp 6, 2 slots, 256 steps, and
      dp 14, 6 slots, 256 steps; every output bit-equal, symclass and
      the canonical py included;
   4s. full-width symmetry walk, 2^22 x 1024, beside the plain one;
@@ -32,7 +35,16 @@ Phases:
   5s. end-to-end -sym solve of fixtures/in64.txt at 2^22 lanes with the
      auto DP, through the symmetry kernel only, then the plain in64
      solve with the same seed for its jump count;
-  6. the kernels line, the card line and the result line.
+  7. probes: each probe kernel (P1 field chains, P2 raw chains, P3 walk
+     variants, P4 inversion chains) launched as its entry point
+     launches it (inputs, lanes, geometry, rounds; P1's fe_inv and P2
+     at fewer rounds) against its plain version on lanes of every block
+     -- whole thread groups where a thread owns G lanes -- (tolerance
+     0; f32 rtol 1e-5), then the five probe entry points at their
+     default shapes, launch counts read around them;
+  8. check: -check (run_self_check) on the card, launch counts read
+     around it;
+  9. the kernels line, the card line and the result line.
 """
 
 import json
@@ -54,10 +66,19 @@ SEED = 0x5EED
 IN56_KEY = 0x9FD2E30C451A6B
 IN64_KEY = 0xCAFEBABE12345678
 NAMES = ("px", "py", "d", "count", "dpx", "dpd", "step")
-# (dp, slots, steps, overflow expected) of the kernel-vs-plain windows
-PLAIN_WINDOWS = ((6, 2, 512, True), (DP_FULL, SLOTS_FULL, NB_FULL, False))
-# the plain symmetry walk takes ~40 s per 512 steps on 2^14 lanes
-SYM_WINDOWS = ((6, 2, 512, True), (DP_FULL, SLOTS_FULL, 256, False))
+# (dp, slots, steps, overflow expected) of the kernel-vs-plain windows.
+# The plain walk takes 30-50 s per 512 steps on 2^14 lanes, by the
+# host's speed; the overflow windows are short (most lanes fill their 2
+# slots within 256 steps at dp 6) to keep the script well inside its
+# time limit.
+PLAIN_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 512, False))
+SYM_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 256, False))
+# probe comparisons (phase 7): lanes of each 128-lane block that the
+# plain versions of P1's one-lane chains check; the rounds of the P1
+# fe_inv and P2 comparison launches (the entry points run 16 and 2^17)
+CMP_LANES_PER_BLOCK = 4
+CMP_INV_ROUNDS = 1
+CMP_INNER = 256
 
 
 def phase_device():
@@ -75,19 +96,45 @@ def phase_device():
 
 
 def phase_build():
-    from kangaroo_torch.ops import jump_cuda
+    """Build both libraries at once; print the walk kernels' and the
+    probe kernels' ptxas reports and each walk kernel's SASS hash."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kangaroo_torch.ops import jump_cuda, probe_cuda
+    from kangaroo_torch.utils import sass
     from kangaroo_torch.utils.build import BUILD_DIR
 
     t = time.time()
-    lib = jump_cuda.build()
+    with ThreadPoolExecutor(2) as ex:
+        walk_f, probe_f = ex.submit(jump_cuda.build), ex.submit(
+            probe_cuda.build)
+        lib, probe_lib = walk_f.result(), probe_f.result()
     log = (BUILD_DIR / f"{lib.name}.log").read_text()
     kinds = {"ILb0E": "plain:", "ILb1E": "symmetry:"}
     ptx = [next((v for k, v in kinds.items() if k in ln), ln.strip())
            if "entry function" in ln else ln.strip()
            for ln in log.splitlines()
            if "entry function" in ln or "registers" in ln or "spill" in ln]
-    print(f"[2 build] {time.time() - t:.1f}s {lib.name}: "
-          + " | ".join(ptx), flush=True)
+    print(f"[2 build] {time.time() - t:.1f}s {lib.name} and "
+          f"{probe_lib.name}: " + " | ".join(ptx), flush=True)
+    funcs = sass.sass_functions(lib)
+    names = sass.demangle(sorted(funcs))
+    for mangled in sorted(funcs):
+        print(f"[2 build] SASS {names[mangled]}: {len(funcs[mangled])} "
+              f"instructions, sha256 {sass.sass_hash(funcs[mangled])}",
+              flush=True)
+    rep = sass.ptxas_report((BUILD_DIR / f"{probe_lib.name}.log").read_text())
+    pnames = sass.demangle(sorted(rep))
+    spills = [pnames[k] for k, r in rep.items()
+              if r.get("spill_stores") or r.get("spill_loads")]
+    print(f"[2 build] {probe_lib.name}: {len(rep)} kernels; "
+          + "; ".join(f"{pnames[k].split('(')[0].replace('void ', '')}: "
+                      f"{r.get('regs')} regs, stack {r.get('stack')} B, "
+                      f"smem {r.get('smem')} B, spill "
+                      f"{r.get('spill_stores')}/{r.get('spill_loads')}"
+                      for k, r in sorted(rep.items(),
+                                         key=lambda kv: pnames[kv[0]]))
+          + f"; kernels that spill: {spills or 'none'}", flush=True)
 
 
 def _herd(n, dev, sym=False):
@@ -317,6 +364,292 @@ def _entry(label, launches, cmp, ms, bound, by):
     }
 
 
+PROBE_SOURCE = "kangaroo_torch/csrc/probe_kernels.cu"
+PROBE_REPLACES = {"pkbench": "scripts/pkbench.py:62",
+                  "probe_ops": "scripts/probe_ops.py:49",
+                  "layout_probe": "scripts/layout_probe.py:109",
+                  "pkdelta": "scripts/pkdelta.py:213",
+                  "pkinv": "scripts/pkinv.py:129"}
+
+
+def _max_err(got, want, canon=False):
+    """max |got - want| (0 where equal, infinities included); field
+    values compared canonical."""
+    from kangaroo_torch.ops import field
+
+    if canon:
+        got, want = field.canonicalize(got), field.canonicalize(want)
+    d = (got.double() - want.double()).abs()
+    d[got == want] = 0
+    return float(d.max())
+
+
+def _lane_sample(blocks, size, per_block, rs):
+    """per_block lanes of each of `blocks` blocks of `size` one-lane
+    threads: the first and the last lane of every block and random
+    others (one lane per block: random, the first block's first and the
+    last block's last)."""
+    pick = rs.randint(0, size, (blocks, per_block))
+    if per_block > 1:
+        pick[:, 0], pick[:, -1] = 0, size - 1
+    else:
+        pick[0, 0], pick[-1, 0] = 0, size - 1
+    return (np.arange(blocks)[:, None] * size + pick).reshape(-1)
+
+
+def _group_sample(blocks, group, rs, want=()):
+    """Every lane of some threads of each of `blocks` blocks of THREADS
+    threads x `group` lanes (thread t of block b owns lanes
+    b*THREADS*group + g*THREADS + t): one thread per block (THREADS in
+    all where there are fewer blocks), thread 0 of the first block and
+    the last thread of the last among them, elsewhere the thread of a
+    lane in `want` where the block has one, else random threads.
+    Ordered as the plain versions group lanes: sampled thread s =
+    q*THREADS + u owns columns q*THREADS*group + g*THREADS + u."""
+    from kangaroo_torch.ops import probe_cuda
+
+    t = probe_cuda.THREADS
+    per = max(1, t // blocks)
+    if blocks * per % t:
+        raise ValueError(f"{blocks} blocks do not give whole sets of {t} "
+                         f"threads")
+    pick = np.stack([rs.permutation(t)[:per] for _ in range(blocks)])
+    for lane in want:
+        b, u = lane // (t * group), lane % t
+        if u not in pick[b]:
+            pick[b, 0] = u
+    for b, u in ((0, 0), (blocks - 1, t - 1)):
+        if u not in pick[b]:
+            pick[b, -1 if u else 0] = u
+    lanes = (np.arange(blocks)[:, None, None] * t * group
+             + np.arange(group)[None, None, :] * t + pick[:, :, None])
+    return lanes.reshape(-1, t, group).transpose(0, 2, 1).reshape(-1)
+
+
+def phase_probe_compare(dev):
+    """Each probe kernel against its plain version on identical inputs.
+    The kernel runs as its entry point runs it: the entry point's inputs,
+    lane or element count, geometry, rounds, DP size and slots -- only
+    P1's fe_inv (plain: a Python pow per lane) and the P2 chains (plain:
+    one launch per iteration) at fewer rounds.  The plain version runs on
+    lanes of every block of that launch: P1's one-lane chains a few
+    lanes of each block; P1's step, P3 and P4, whose threads own G lanes
+    each, every lane of one thread per block (P3: a thread with a DP in
+    this run where the block has one); P2 every element.  Returns {kernel
+    key: (max_abs_err, plain ms, kernel launch, plain shape)}.  Launches
+    made here are not the probes' main path."""
+    from kangaroo_torch.ops import jump_ref, probe_cuda, probe_ref
+    from kangaroo_torch.probes import (common, layout_probe, pkbench,
+                                       pkdelta, pkinv, probe_ops)
+    from kangaroo_torch.profile_walk import cuda_ms
+
+    rs = np.random.RandomState(SEED)
+    thr, grp = probe_cuda.THREADS, probe_cuda.GROUP
+    res = {}
+
+    def record(key, got, want, p_ms, shape, p_shape, canon=False,
+               rtol=0.0):
+        err = _max_err(got, want, canon)
+        if rtol:
+            torch.testing.assert_close(got, want, rtol=rtol, atol=0)
+        elif err:
+            raise SystemExit(f"{key} at {shape} disagrees with its plain "
+                             f"version: max |kernel - plain| {err}")
+        old = res.get(key)  # another launch of the same kernel
+        res[key] = ((max(err, old[0]), old[1], f"{old[2]}; {shape}",
+                     f"{old[3]}; {p_shape}") if old
+                    else (err, p_ms, shape, p_shape))
+
+    t0 = time.time()
+    n = 1 << pkbench.LANES_LOG2
+    a, b, tbl, jx, jy = pkbench.inputs(n, dev)
+    per_lane = torch.from_numpy(
+        _lane_sample(n // thr, thr, CMP_LANES_PER_BLOCK, rs)).to(dev)
+    one_lane = torch.from_numpy(_lane_sample(n // thr, thr, 1, rs)).to(dev)
+    steps_idx = torch.from_numpy(
+        _group_sample(n // (thr * grp), grp, rs)).to(dev)
+    for op in probe_ref.FIELD_OPS:
+        tabs = pkbench.tables(op, tbl, jx, jy)
+        rounds = CMP_INV_ROUNDS if op == "inv" else pkbench.ROUNDS[op]
+        idx = {"inv": one_lane, "step": steps_idx}.get(op, per_lane)
+        p_shape = (f"{idx.numel()} lanes, "
+                   + ("every lane of one thread per block" if op == "step"
+                      else f"{idx.numel() * thr // n} of each block")
+                   + f", x {rounds} rounds")
+        p, p_ms = cuda_ms(lambda: probe_ref.field_chain(
+            op, a[:, idx], b[:, idx], rounds, *tabs))
+        for smem in ((0, common.OCC2_SMEM) if op in ("mul", "sqr")
+                     else (0,)):
+            k = probe_cuda.field_chain(op, a.clone(), b, rounds, *tabs,
+                                       smem=smem)
+            record(probe_cuda.kernel_key("field_chain", op), k[:, idx], p,
+                   p_ms, f"{n} lanes x {rounds} rounds"
+                   + (f", {smem} B dynamic shared memory" if smem else ""),
+                   p_shape, canon=op not in ("gather", "step"))
+            del k
+    # fe_inv's latency row: one block of 128 lanes, every lane
+    r = pkbench.ROUNDS["inv"]
+    x1, b1 = (t[:, :pkbench.INV_LANES].contiguous() for t in (a, b))
+    p, p_ms = cuda_ms(lambda: probe_ref.field_chain("inv", x1, b1, r))
+    record(probe_cuda.kernel_key("field_chain", "inv"),
+           probe_cuda.field_chain("inv", x1.clone(), b1, r), p, p_ms,
+           f"{pkbench.INV_LANES} lanes x {r} rounds",
+           f"{pkbench.INV_LANES} lanes x {r} rounds", canon=True)
+    del a, b, per_lane, one_lane, steps_idx
+    t1 = time.time()
+
+    def raw(op, x, ilp, smem=0):
+        f32 = op in probe_ref.F32_OPS
+        p, p_ms = cuda_ms(lambda: probe_ref.raw_chain(op, x, CMP_INNER))
+        k = probe_cuda.raw_chain(op, x.clone(), CMP_INNER, ilp, smem)
+        shape = (f"{x.numel()} elements x {CMP_INNER} iterations, ILP {ilp}"
+                 + (f", {smem} B dynamic shared memory" if smem else ""))
+        record(probe_cuda.kernel_key("raw_chain", op, ilp), k, p, p_ms,
+               shape, f"{x.numel()} elements x {CMP_INNER} iterations",
+               rtol=1e-5 if f32 else 0.0)
+
+    for op in probe_ops.OPS:
+        raw(op, probe_ops.inputs(op, probe_ops.ELEMS, dev), probe_ops.ILP)
+    a = layout_probe.inputs(layout_probe.W, dev)
+    for v, (ilp, frac, op) in layout_probe.VARIANTS.items():
+        raw(op, a[:a.numel() // frac].clone(), ilp, layout_probe.smem_of(v))
+    del a
+    t2 = time.time()
+
+    n = 1 << pkdelta.HERD_LOG2
+    state, tabs = pkdelta.inputs(n, dev)
+    masks = jump_ref.dp_limb_masks(pkdelta.DP_SIZE, dev)
+    shape = (f"{n} lanes x {pkdelta.NB_RUN} steps, dp {pkdelta.DP_SIZE}, "
+             f"{pkdelta.SLOTS} slots")
+    for v in probe_ref.DELTA_VARIANTS:
+        k = probe_cuda.delta_walk(v, *[t.clone() for t in state], *tabs,
+                                  masks, pkdelta.NB_RUN, pkdelta.SLOTS)
+        hits = torch.nonzero(k[3]).flatten().cpu().numpy()
+        idx = torch.from_numpy(
+            _group_sample(n // (thr * grp), grp, rs, hits)).to(dev)
+        sub = [t[:, idx] for t in state]
+        p, p_ms = cuda_ms(lambda: probe_ref.delta_walk(
+            v, *sub, *tabs, masks, pkdelta.NB_RUN, pkdelta.SLOTS))
+        errs = [_max_err(x[..., idx], y, canon=i == 1)
+                for i, (x, y) in enumerate(zip(k, p))]
+        if max(errs) or (int(p[3].sum()) == 0) != (v == "no_dp"):
+            raise SystemExit(f"walk variant {v} disagrees with its plain "
+                             f"version: {errs}, {int(p[3].sum())} DPs on "
+                             f"the plain lanes")
+        res[probe_cuda.kernel_key("delta", v)] = (
+            max(errs), p_ms, shape,
+            f"{idx.numel()} lanes (every lane of one thread per block; "
+            f"{len(hits)} lanes of the launch hit DPs, "
+            f"{int((p[3] > 0).sum())} of these)")
+        del k
+    del state
+    t3 = time.time()
+
+    threads = (1 << pkinv.W_LOG2) // grp
+    for name in pkinv.DEFAULT:
+        var, g = pkinv.parse(name)
+        x = pkinv.inputs(threads * g, dev)
+        idx = torch.from_numpy(_group_sample(threads // thr, g, rs)).to(dev)
+        p, p_ms = cuda_ms(lambda: probe_ref.inv_chain(
+            var, x[:, idx], pkinv.ITERS, g))
+        k = probe_cuda.inv_chain(var, x.clone(), pkinv.ITERS, g)
+        record(probe_cuda.kernel_key("inv_chain", var, g), k[:, idx], p,
+               p_ms, f"{x.shape[1]} lanes x {pkinv.ITERS} iterations, G {g}",
+               f"{idx.numel()} lanes (every lane of one thread per block)")
+        del k, x
+    torch.cuda.synchronize()
+    print(f"[7 probes, compare] {len(res)} probe kernels bit-equal to their "
+          f"plain versions at their entry points' launches (f32 rows within "
+          f"rtol 1e-5: max |kernel - plain| "
+          f"{max(res[k][0] for k in res if 'f32' in k)}); P1 "
+          f"{t1 - t0:.1f} s, P2 {t2 - t1:.1f} s, P3 {t3 - t2:.1f} s, P4 "
+          f"{time.time() - t3:.1f} s: "
+          + "; ".join(f"{k} at {v[2]} (plain on {v[3]}: {v[1]:.1f} ms)"
+                      for k, v in res.items()), flush=True)
+    return res
+
+
+def phase_probes():
+    """The probe entry points at their default shapes, launch counts set
+    to 0 before and read after; returns (rows by module, counts)."""
+    from kangaroo_torch.ops import jump_cuda, probe_cuda
+    from kangaroo_torch.probes import (layout_probe, pkbench, pkdelta, pkinv,
+                                       probe_ops)
+
+    probe_cuda.LAUNCHES.clear()
+    jump_cuda.LAUNCHES = 0
+    t = time.time()
+    rows = {}
+    for mod in (pkbench, probe_ops, layout_probe, pkdelta, pkinv):
+        name = mod.__name__.rsplit(".", 1)[1]
+        print(f"[7 probes] {name}", flush=True)
+        rows[name] = mod.run()
+    torch.cuda.synchronize()
+    counts = dict(probe_cuda.LAUNCHES, **{"walk/plain": jump_cuda.LAUNCHES})
+    idle = sorted({r["key"] for rs in rows.values() for r in rs
+                   if not counts.get(r["key"])})
+    print(f"[7 probes] entry points {time.time() - t:.1f} s; launches "
+          f"{counts}", flush=True)
+    if idle:
+        raise SystemExit(f"probe kernels not launched by their entry "
+                         f"points: {idle}")
+    return rows, counts
+
+
+def phase_check():
+    """-check on the card, launch counts set to 0 before and read after."""
+    from kangaroo_torch.core.check import run_self_check
+    from kangaroo_torch.ops import jump_cuda, probe_cuda
+
+    probe_cuda.LAUNCHES.clear()
+    jump_cuda.LAUNCHES = 0
+    jump_cuda.SYM_LAUNCHES = 0
+    t = time.time()
+    ok = run_self_check("cuda")
+    torch.cuda.synchronize()
+    used = {"walk, plain": jump_cuda.LAUNCHES,
+            "walk, symmetry": jump_cuda.SYM_LAUNCHES,
+            "fe_mul (P1, one round)": probe_cuda.LAUNCHES[
+                probe_cuda.kernel_key("field_chain", "mul")],
+            "fe_inv (P1, one round)": probe_cuda.LAUNCHES[
+                probe_cuda.kernel_key("field_chain", "inv")]}
+    print(f"[8 check] run_self_check on the card: {ok}, "
+          f"{time.time() - t:.1f} s; kernel launches {used}", flush=True)
+    if not ok or not all(used.values()):
+        raise SystemExit("-check failed on the card, or did not run "
+                         "through the kernels")
+
+
+def _probe_entries(rows, counts, cmp):
+    """One kernels-line entry per row of the probe entry points (the
+    production walk's pkbench row is the walk's own entry)."""
+    out = []
+    for mod, rs in rows.items():
+        for r in rs:
+            key = r["key"]
+            if key == "walk/plain":
+                continue
+            err, p_ms, cmp_shape, p_shape = cmp[key]
+            label = r.get("label") or r.get("op") or r.get("variant")
+            out.append({
+                "name": f"{key} ({mod}: {label})",
+                "route": "cuda",
+                "source": PROBE_SOURCE,
+                "replaces": PROBE_REPLACES[mod],
+                "launches": counts[key],
+                "max_abs_err": err,
+                "ms": r["ms"],
+                "plain_ms": p_ms,
+                "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                "library_ms": None,
+                "shape": r["shape"],
+                "compare_shape": cmp_shape,
+                "plain_shape": p_shape,
+            })
+    return out
+
+
 def main():
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -339,11 +672,15 @@ def main():
           f"plain 2^{math.log2(plain_st.count):.2f} in {plain_st.ticks} "
           f"ticks (one solve each: the count to a key varies run to run)",
           flush=True)
+    torch.cuda.empty_cache()
+    cmp_probes = phase_probe_compare(dev)
+    probe_rows, probe_counts = phase_probes()
+    phase_check()
     kernels = [
         _entry("plain", launches, cmp_plain, ms, bound, by),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
                sym_by),
-    ]
+    ] + _probe_entries(probe_rows, probe_counts, cmp_probes)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

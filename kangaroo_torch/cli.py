@@ -1,11 +1,12 @@
 """Command-line entry point of the PyTorch/CUDA port (standalone solve).
 
 Flag surface of kangaroo_tpu/cli.py restricted to the standalone solve,
-plain or symmetric (-sym); the other flags of that CLI exit non-zero
-with "not yet ported".
+plain or symmetric (-sym), and the self-check (-check); the other flags
+of that CLI exit non-zero with "not yet ported".
 
     python -m kangaroo_torch.cli [-d dp] [-nk n] [-nbrun n] [-m maxStep]
         [-o file] [-dpcost s] [-sym] [-device cuda|cpu] inFile
+    python -m kangaroo_torch.cli [-device cuda|cpu] -check
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ NOT_YET_PORTED = {
     "-nwin": 1, "-backend": 1, "-platform": 1, "-devices": 1,
     "-w": 1, "-i": 1, "-wi": 1, "-ws": 0, "-wss": 0, "-wsplit": 0, "-wt": 1,
     "-wm": 3, "-wmdir": 2, "-winfo": 1, "-wpartcreate": 1, "-wcheck": 1,
-    "-s": 0, "-c": 1, "-sp": 1, "-nt": 1, "-l": 0, "-check": 0,
+    "-s": 0, "-c": 1, "-sp": 1, "-nt": 1, "-l": 0,
 }
 
 
@@ -39,6 +40,8 @@ def print_usage() -> None:
  -sym: Equivalence-class walk over {P,-P} (~sqrt(2) fewer jumps)
  -device cuda|cpu: Where the walk runs (default cuda; cuda without a
        card is an error)
+ -check: Check the kernels and field arithmetic against reference
+       implementations on -device (exit 0 when all agree)
  -m maxStep: number of operations before give up the search (maxStep*expected operation)
  -o fileName: output result to fileName
  inFile: input configuration file"""
@@ -73,6 +76,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     out_file = ""
     device = "cuda"
     symmetry = False
+    check = False
     in_file = ""
 
     i = 0
@@ -100,6 +104,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             i += 1; out_file = _arg(argv, i, a)
         elif a == "-sym":
             symmetry = True
+        elif a == "-check":
+            check = True
         elif a in NOT_YET_PORTED:
             print(f"{a}: not yet ported to kangaroo_torch "
                   f"(use python -m kangaroo_tpu.cli)")
@@ -111,6 +117,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             in_file = a
         i += 1
+    if check:
+        from .core.check import run_self_check
+
+        return 0 if run_self_check(device) else 1
     if not in_file:
         print_usage()
         return 2

@@ -1,11 +1,13 @@
-// Host build of the walk kernel's arithmetic and per-thread body, for
-// the CPU tests: g++ compiles field.cuh and walk.cuh (the same code
-// nvcc builds into jump_kernel.cu) and the tests call these C entry
-// points through ctypes.  Field elements are passed as arrays of n
-// elements of 8 uint32 words each (4 words for distances).
+// Host build of the walk kernel's arithmetic and per-thread body, and
+// of the probe kernels' bodies, for the CPU: g++ compiles field.cuh,
+// walk.cuh and probes.cuh (the same code nvcc builds into
+// jump_kernel.cu and probe_kernels.cu) and kangaroo_torch/ops/
+// host_kernel.py binds these C entry points with ctypes.  Field
+// elements are passed as arrays of n elements of 8 uint32 words each
+// (4 words for distances).
 #include <vector>
 
-#include "walk.cuh"
+#include "probes.cuh"
 
 extern "C" {
 
@@ -76,6 +78,121 @@ int kt_walk_host(int32_t* px, int32_t* py, int32_t* d, const int32_t* jx,
                 kt::walk_thread<false>(a, tb, (size_t)b, t, scratch);
         }
     return 0;
+}
+
+}  // extern "C"
+
+namespace {
+
+struct FieldHost {
+    int32_t* x;
+    const int32_t* b;
+    size_t n;
+    int rounds;
+    const kt::JumpTable& tb;
+    template <int OP>
+    int run() {
+        if constexpr (OP == kt::F_STEP) {
+            std::vector<uint32_t> acc(8 * kt::GROUP);
+            auto* scratch = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+            for (size_t blk = 0; blk < n / kt::LANES; ++blk)
+                for (int t = 0; t < kt::THREADS; ++t)
+                    kt::step_chain_thread(x, b, n, blk, t, rounds, tb,
+                                          scratch);
+        } else {
+            for (size_t lane = 0; lane < n; ++lane)
+                kt::field_chain_lane<OP>(x, b, n, lane, rounds, tb);
+        }
+        return 0;
+    }
+};
+
+struct RawHost {
+    void* x;
+    size_t nthreads;
+    int inner;
+    template <int OP, int ILP>
+    int run() {
+        auto* v = static_cast<typename kt::RawType<OP>::type*>(x);
+        for (size_t tid = 0; tid < nthreads; ++tid)
+            kt::raw_chain_thread<OP, ILP>(v, tid, nthreads, inner);
+        return 0;
+    }
+};
+
+struct InvHost {
+    int32_t* x;
+    size_t n;
+    int iters;
+    template <int VAR, int G>
+    int run() {
+        std::vector<uint32_t> acc(8 * G);
+        auto* scratch = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+        for (size_t blk = 0; blk < n / (kt::THREADS * G); ++blk)
+            for (int t = 0; t < kt::THREADS; ++t)
+                kt::inv_chain_thread<VAR, G>(x, n, blk, t, iters, scratch);
+        return 0;
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+// The probe kernels' launches, run thread by thread on the host, with
+// the arguments of their kt_*_launch counterparts in probe_kernels.cu
+// (no stream).  Each returns 0, or 1 for arguments the kernel refuses.
+
+int kt_field_chain_host(int op, int32_t* x, const int32_t* b,
+                        const int32_t* jx, const int32_t* jy, int n,
+                        int rounds) {
+    const int quantum = op == kt::F_STEP ? kt::LANES : kt::THREADS;
+    const bool table = op == kt::F_GATHER || op == kt::F_STEP;
+    if (n <= 0 || rounds < 0 || n % quantum || (table && !(jx && jy)))
+        return 1;
+    kt::JumpTable tb{};
+    if (table)
+        for (int k = 0; k < 8 * kt::NB_JUMP; ++k)
+            kt::pack_table_word(&tb, jx, jy, jx, k);
+    FieldHost h{x, b, (size_t)n, rounds, tb};
+    return kt::with_field_op(op, h) == 0 ? 0 : 1;
+}
+
+int kt_raw_chain_host(int op, int ilp, void* x, int n_elems, int inner) {
+    if (ilp <= 0 || n_elems <= 0 || n_elems % ilp || inner < 0) return 1;
+    RawHost h{x, (size_t)n_elems / ilp, inner};
+    return kt::with_raw_chain(op, ilp, h) == 0 ? 0 : 1;
+}
+
+int kt_delta_host(int variant, int32_t* px, int32_t* py, int32_t* d,
+                  const int32_t* jx, const int32_t* jy, const int32_t* jd,
+                  const int32_t* masks, int n, int nb_run, int slots,
+                  int32_t* count, int32_t* dpx, int32_t* dpd,
+                  int32_t* dstep) {
+    if (n <= 0 || n % kt::LANES != 0) return 1;
+    kt::JumpTable tb;
+    for (int k = 0; k < 8 * kt::NB_JUMP; ++k)
+        kt::pack_table_word(&tb, jx, jy, jd, k);
+    kt::WalkArgs a{px, py, d, masks, (size_t)n, nb_run, slots,
+                   count, dpx, dpd, dstep, nullptr};
+    std::vector<uint32_t> acc(8 * kt::GROUP);
+    auto* scratch = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+    const int rc = kt::with_delta_variant(variant, [&](auto v) {
+        for (int b = 0; b < n / kt::LANES; ++b)
+            for (int t = 0; t < kt::THREADS; ++t)
+                kt::walk_thread<false, decltype(v)>(a, tb, (size_t)b, t,
+                                                    scratch);
+        return 0;
+    });
+    return rc == 0 ? 0 : 1;
+}
+
+int kt_inv_chain_host(int variant, int group, int32_t* x, int n,
+                      int iters) {
+    if (group <= 0 || n <= 0 || n % (kt::THREADS * group) != 0 || iters < 0)
+        return 1;
+    InvHost h{x, (size_t)n, iters};
+    return kt::with_inv_variant(variant, group, h) == 0 ? 0 : 1;
 }
 
 }  // extern "C"

@@ -1,0 +1,394 @@
+// Hopper (sm_90a) probe kernels: the counterparts of the repository's
+// five TPU probe kernels, each measuring one part of the walk kernel's
+// cost on the card.
+//
+//   kt_field_chain<Op>     replaces scripts/pkbench.py:62 run_chain (body
+//                          chain_kernel :46): a <- op(a, b) `rounds`
+//                          times per lane, op one of field.cuh's
+//                          fe_mul, fe_sqr, fe_sub, fe_add, fe_fold,
+//                          fe_canon, fe_inv, the shared-memory table
+//                          gather, or a jump step without DP or distance
+//                          on the walk's geometry.  At one round it is
+//                          -check's field-volume oracle on the card.
+//   kt_raw_chain<Op, ILP>  replaces scripts/probe_ops.py:49 and
+//                          scripts/layout_probe.py:109: on Hopper both
+//                          are a chain of one 32-bit instruction per
+//                          element and iteration with ILP independent
+//                          chains per thread; they differ only in ILP
+//                          and thread count.  Dynamic shared memory
+//                          pads a launch down to a chosen occupancy.
+//   kt_delta_kernel<V>     replaces scripts/pkdelta.py:213 run_variant:
+//                          the production walk body (walk.cuh) with one
+//                          component switched by V; V = kt::Production
+//                          is the production kernel's own code.
+//   kt_inv_chain<Var, G>   replaces scripts/pkinv.py:129 run: the walk's
+//                          per-thread Montgomery inversion over G lanes
+//                          (cur), without its fe_inv (nodiv), or none.
+//
+// What bounds them: P1's multiply ops, P3 and P4 issue 32-bit integer
+// multiply-adds (the walk's bound); the add, subtract, canonicalize and
+// fold chains integer adds and logic ops; the gather shared-memory
+// loads; P2 the one pipe its instruction runs on.  Each state array is
+// read once and written once per launch, so every probe is bound by
+// operations at its default shape (ops/probe_cuda.py counts them).  The
+// bodies live in probes.cuh and walk.cuh, built by g++ for the CPU
+// tests too; this file adds the launches, a table of kernels for the
+// attributes and occupancy, and the C entry points bound with ctypes
+// by kangaroo_torch/ops/probe_cuda.py.
+//
+// Built in parts, one nvcc each, all started together and linked into
+// one library (ops/probe_cuda.py), so that the build takes the time of
+// its slowest part: the kernels that hold a Fermat inversion take the
+// longest, and no part holds more than three of them.  KT_PROBE_PART
+// selects what a part compiles: 0 the entry points, P1's one-lane
+// chains but fe_inv, and P2; 1 P1's fe_inv; 2 P1's step; 3 and 4 P4
+// below and from G = 128; 5-8 the walk variants of P3 with ids 0-2,
+// 3-4, 5-6, 7-8.  Without KT_PROBE_PART one compile builds everything.
+#include <cuda_runtime.h>
+
+#include "probes.cuh"
+
+#ifndef KT_PROBE_PART
+#define KT_PROBE_PART -1
+#endif
+#define KT_PART(p) (KT_PROBE_PART < 0 || KT_PROBE_PART == (p))
+
+using FieldFn = void (*)(int32_t*, const int32_t*, size_t, int,
+                         const int32_t*, const int32_t*);
+using RawFn = void (*)(void*, size_t, int);
+using DeltaFn = void (*)(kt::WalkArgs, const int32_t*, const int32_t*,
+                         const int32_t*);
+using InvFn = void (*)(int32_t*, size_t, int);
+
+// The kernel of an op or variant, or null; each getter is defined in
+// the part that compiles its kernels.
+FieldFn kt_field_kernel_light(int op);
+FieldFn kt_field_kernel_inv(int op);
+FieldFn kt_field_kernel_step(int op);
+RawFn kt_raw_kernel(int op, int ilp);
+InvFn kt_inv_kernel_below128(int var, int group);
+InvFn kt_inv_kernel_from128(int var, int group);
+DeltaFn kt_delta_kernel_0_3(int id);
+DeltaFn kt_delta_kernel_3_5(int id);
+DeltaFn kt_delta_kernel_5_7(int id);
+DeltaFn kt_delta_kernel_7_9(int id);
+static_assert(kt::DELTA_NVARIANTS == 9, "the P3 parts cover ids 0..8");
+
+namespace {
+
+template <class V>
+__global__ void __launch_bounds__(kt::THREADS)
+kt_delta_kernel(kt::WalkArgs a, const int32_t* __restrict__ jx,
+                const int32_t* __restrict__ jy,
+                const int32_t* __restrict__ jd) {
+    __shared__ kt::JumpTable tb;
+    for (int k = threadIdx.x; k < 8 * kt::NB_JUMP; k += blockDim.x)
+        kt::pack_table_word(&tb, jx, jy, jd, k);
+    __syncthreads();
+    uint32_t acc[kt::GROUP][8];
+    kt::walk_thread<false, V>(a, tb, blockIdx.x, threadIdx.x, acc);
+}
+
+// The kernel of variant `id` among ids LO..HI-1 (only those are
+// instantiated), or null.
+template <int LO, int HI>
+DeltaFn delta_kernel_in(int id) {
+    DeltaFn fn = nullptr;
+    kt::with_delta_variant<LO, HI>(id, [&](auto v) {
+        fn = kt_delta_kernel<decltype(v)>;
+        return 0;
+    });
+    return fn;
+}
+
+template <int VAR, int G>
+__global__ void __launch_bounds__(kt::THREADS)
+kt_inv_chain(int32_t* x, size_t n, int iters) {
+    uint32_t acc[VAR == kt::INV_NONE ? 1 : G][8];
+    kt::inv_chain_thread<VAR, G>(x, n, blockIdx.x, threadIdx.x, iters, acc);
+}
+
+// The inversion chain kernel of (VAR, G) for G in GLO..GHI-1 (only
+// those are instantiated), or null.
+template <int GLO, int GHI>
+struct InvPick {
+    InvFn fn = nullptr;
+    template <int VAR, int G>
+    int run() {
+        if constexpr (G >= GLO && G < GHI) fn = kt_inv_chain<VAR, G>;
+        return 0;
+    }
+};
+
+template <int GLO, int GHI>
+InvFn inv_kernel_in(int var, int group) {
+    InvPick<GLO, GHI> p;
+    kt::with_inv_variant(var, group, p);
+    return p.fn;
+}
+
+template <int OP>
+__global__ void __launch_bounds__(kt::THREADS)
+kt_field_chain(int32_t* x, const int32_t* b, size_t n, int rounds,
+               const int32_t* jx, const int32_t* jy) {
+    __shared__ kt::JumpTable tb;
+    if constexpr (OP == kt::F_GATHER || OP == kt::F_STEP) {
+        // the (16, 32) tables jx, jy (jd unused: jx's first 8 rows)
+        for (int k = threadIdx.x; k < 8 * kt::NB_JUMP; k += blockDim.x)
+            kt::pack_table_word(&tb, jx, jy, jx, k);
+        __syncthreads();
+    }
+    if constexpr (OP == kt::F_STEP) {
+        uint32_t acc[kt::GROUP][8];
+        kt::step_chain_thread(x, b, n, blockIdx.x, threadIdx.x, rounds, tb,
+                              acc);
+    } else {
+        const size_t lane = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+        kt::field_chain_lane<OP>(x, b, n, lane, rounds, tb);
+    }
+}
+
+// The field chain kernel of op, for the ops OPS (only those are
+// instantiated), or null.
+template <int... OPS>
+struct FieldPick {
+    FieldFn fn = nullptr;
+    template <int OP>
+    int run() {
+        if constexpr (((OP == OPS) || ...)) fn = kt_field_chain<OP>;
+        return 0;
+    }
+};
+
+template <int... OPS>
+FieldFn field_kernel_of(int op) {
+    FieldPick<OPS...> p;
+    kt::with_field_op(op, p);
+    return p.fn;
+}
+
+}  // namespace
+
+#if KT_PART(0)
+namespace {
+
+template <int OP, int ILP>
+__global__ void __launch_bounds__(kt::THREADS)
+kt_raw_chain(void* x, size_t nthreads, int inner) {
+    const size_t tid = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (tid < nthreads)
+        kt::raw_chain_thread<OP, ILP>(
+            static_cast<typename kt::RawType<OP>::type*>(x), tid, nthreads,
+            inner);
+}
+
+struct RawPick {
+    RawFn fn = nullptr;
+    template <int OP, int ILP>
+    int run() {
+        fn = kt_raw_chain<OP, ILP>;
+        return 0;
+    }
+};
+
+FieldFn field_kernel(int op) {
+    FieldFn fn = kt_field_kernel_light(op);
+    if (!fn) fn = kt_field_kernel_inv(op);
+    if (!fn) fn = kt_field_kernel_step(op);
+    return fn;
+}
+
+DeltaFn delta_kernel(int id) {
+    DeltaFn fn = kt_delta_kernel_0_3(id);
+    if (!fn) fn = kt_delta_kernel_3_5(id);
+    if (!fn) fn = kt_delta_kernel_5_7(id);
+    if (!fn) fn = kt_delta_kernel_7_9(id);
+    return fn;
+}
+
+InvFn inv_kernel(int var, int group) {
+    const InvFn fn = kt_inv_kernel_below128(var, group);
+    return fn ? fn : kt_inv_kernel_from128(var, group);
+}
+
+// The kernel of (family, id, arg): 0 field chain op, 1 raw chain (op,
+// ilp), 2 walk variant, 3 inversion chain (variant, group).
+const void* probe_kernel(int family, int id, int arg) {
+    switch (family) {
+        case 0: return (const void*)field_kernel(id);
+        case 1: return (const void*)kt_raw_kernel(id, arg);
+        case 2: return (const void*)delta_kernel(id);
+        case 3: return (const void*)inv_kernel(id, arg);
+        default: return nullptr;
+    }
+}
+
+// Let fn take smem bytes of dynamic shared memory (above the default
+// 48 KB a block may have without asking).
+cudaError_t allow_smem(const void* fn, int smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+}  // namespace
+
+FieldFn kt_field_kernel_light(int op) {
+    return field_kernel_of<kt::F_MUL, kt::F_SQR, kt::F_SUB, kt::F_ADD,
+                           kt::F_FOLD, kt::F_CANON, kt::F_GATHER>(op);
+}
+
+RawFn kt_raw_kernel(int op, int ilp) {
+    RawPick p;
+    kt::with_raw_chain(op, ilp, p);
+    return p.fn;
+}
+#endif
+
+#if KT_PART(1)
+FieldFn kt_field_kernel_inv(int op) { return field_kernel_of<kt::F_INV>(op); }
+#endif
+#if KT_PART(2)
+FieldFn kt_field_kernel_step(int op) {
+    return field_kernel_of<kt::F_STEP>(op);
+}
+#endif
+#if KT_PART(3)
+InvFn kt_inv_kernel_below128(int var, int group) {
+    return inv_kernel_in<0, 128>(var, group);
+}
+#endif
+#if KT_PART(4)
+InvFn kt_inv_kernel_from128(int var, int group) {
+    return inv_kernel_in<128, 1 << 30>(var, group);
+}
+#endif
+#if KT_PART(5)
+DeltaFn kt_delta_kernel_0_3(int id) { return delta_kernel_in<0, 3>(id); }
+#endif
+#if KT_PART(6)
+DeltaFn kt_delta_kernel_3_5(int id) { return delta_kernel_in<3, 5>(id); }
+#endif
+#if KT_PART(7)
+DeltaFn kt_delta_kernel_5_7(int id) { return delta_kernel_in<5, 7>(id); }
+#endif
+#if KT_PART(8)
+DeltaFn kt_delta_kernel_7_9(int id) { return delta_kernel_in<7, 9>(id); }
+#endif
+
+#if KT_PART(0)
+extern "C" {
+
+int kt_probe_threads() { return kt::THREADS; }
+
+int kt_probe_group() { return kt::GROUP; }
+
+// P1: `rounds` rounds of op on x (16, n) in place with b (16, n); jx,
+// jy (16, 32) tables for the gather and the step (may be null for the
+// others).  n is a multiple of THREADS, and of THREADS * GROUP for the
+// step.  smem bytes of dynamic shared memory per block pad the launch
+// down to a chosen occupancy.
+int kt_field_chain_launch(int op, void* x, const void* b, const void* jx,
+                          const void* jy, int n, int rounds, int smem,
+                          void* stream) {
+    const FieldFn fn = field_kernel(op);
+    const int quantum = op == kt::F_STEP ? kt::LANES : kt::THREADS;
+    const bool table = op == kt::F_GATHER || op == kt::F_STEP;
+    if (!fn || n <= 0 || rounds < 0 || smem < 0 || n % quantum ||
+        (table && !(jx && jy)))
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem((const void*)fn, smem);
+    if (e != cudaSuccess) return (int)e;
+    fn<<<n / quantum, kt::THREADS, (size_t)smem,
+         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int32_t*>(x), static_cast<const int32_t*>(b), (size_t)n,
+        rounds, static_cast<const int32_t*>(jx),
+        static_cast<const int32_t*>(jy));
+    return (int)cudaGetLastError();
+}
+
+// P2: `inner` iterations of op on n_elems elements of x in place (u32
+// bits or f32), ILP chains per thread; smem bytes of dynamic shared
+// memory per block pad the launch down to a chosen occupancy.
+int kt_raw_chain_launch(int op, int ilp, void* x, int n_elems, int inner,
+                        int smem, void* stream) {
+    const RawFn fn = kt_raw_kernel(op, ilp);
+    if (!fn || n_elems <= 0 || n_elems % ilp || inner < 0 || smem < 0)
+        return (int)cudaErrorInvalidValue;
+    const cudaError_t e = allow_smem((const void*)fn, smem);
+    if (e != cudaSuccess) return (int)e;
+    const size_t threads = (size_t)n_elems / ilp;
+    const size_t blocks = (threads + kt::THREADS - 1) / kt::THREADS;
+    fn<<<(unsigned)blocks, kt::THREADS, (size_t)smem,
+         static_cast<cudaStream_t>(stream)>>>(x, threads, inner);
+    return (int)cudaGetLastError();
+}
+
+// P3: one window of walk variant `variant` (kt_jump_steps' arguments,
+// plain mode).
+int kt_delta_launch(int variant, void* px, void* py, void* d, const void* jx,
+                    const void* jy, const void* jd, const void* masks, int n,
+                    int nb_run, int slots, void* count, void* dpx, void* dpd,
+                    void* dstep, void* stream) {
+    const DeltaFn fn = delta_kernel(variant);
+    if (!fn || n <= 0 || n % kt::LANES != 0 || nb_run <= 0 || slots <= 0)
+        return (int)cudaErrorInvalidValue;
+    kt::WalkArgs a;
+    a.px = static_cast<int32_t*>(px);
+    a.py = static_cast<int32_t*>(py);
+    a.d = static_cast<int32_t*>(d);
+    a.masks = static_cast<const int32_t*>(masks);
+    a.n = (size_t)n;
+    a.nb_run = nb_run;
+    a.slots = slots;
+    a.count = static_cast<int32_t*>(count);
+    a.dpx = static_cast<int32_t*>(dpx);
+    a.dpd = static_cast<int32_t*>(dpd);
+    a.dstep = static_cast<int32_t*>(dstep);
+    a.symclass = nullptr;
+    fn<<<n / kt::LANES, kt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+        a, static_cast<const int32_t*>(jx), static_cast<const int32_t*>(jy),
+        static_cast<const int32_t*>(jd));
+    return (int)cudaGetLastError();
+}
+
+// P4: `iters` rounds of variant (0 cur, 1 nodiv, 2 none) at G = group
+// lanes per thread on x (16, n) in place; n a multiple of THREADS * G.
+int kt_inv_chain_launch(int variant, int group, void* x, int n, int iters,
+                        void* stream) {
+    const InvFn fn = inv_kernel(variant, group);
+    if (!fn || n <= 0 || n % (kt::THREADS * group) != 0 || iters < 0)
+        return (int)cudaErrorInvalidValue;
+    fn<<<n / (kt::THREADS * group), kt::THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(static_cast<int32_t*>(x),
+                                              (size_t)n, iters);
+    return (int)cudaGetLastError();
+}
+
+// Attributes of the kernel of (family, id, arg) (see probe_kernel) with
+// smem bytes of dynamic shared memory: out[0] registers per thread,
+// out[1] local memory bytes per thread, out[2] static shared memory per
+// block, out[3] resident blocks per SM.  Returns a cudaError_t.
+int kt_probe_attrs(int family, int id, int arg, int smem, int* out) {
+    const void* fn = probe_kernel(family, id, arg);
+    if (!fn) return (int)cudaErrorInvalidValue;
+    cudaFuncAttributes at;
+    cudaError_t e = cudaFuncGetAttributes(&at, fn);
+    if (e == cudaSuccess) e = allow_smem(fn, smem);
+    if (e != cudaSuccess) return (int)e;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      kt::THREADS, smem);
+    out[0] = at.numRegs;
+    out[1] = (int)at.localSizeBytes;
+    out[2] = (int)at.sharedSizeBytes;
+    out[3] = blocks;
+    return (int)e;
+}
+
+const char* kt_probe_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"
+#endif

@@ -71,6 +71,21 @@ KT_HD void store_words(int32_t* dst, const uint32_t* r, int nw, size_t n,
     }
 }
 
+// A lane's (rows, n) limbs read into r, and written back from r, through
+// volatile accesses that the compiler may neither drop nor merge: memory
+// traffic with no arithmetic (the extra_traffic probe variant).
+KT_HD void load_limbs_volatile(int32_t* r, int rows, const int32_t* src,
+                               size_t n, size_t lane) {
+    const volatile int32_t* v = src;
+    for (int k = 0; k < rows; ++k) r[k] = v[k * n + lane];
+}
+
+KT_HD void store_limbs_volatile(int32_t* dst, const int32_t* r, int rows,
+                                size_t n, size_t lane) {
+    volatile int32_t* v = dst;
+    for (int k = 0; k < rows; ++k) v[k * n + lane] = r[k];
+}
+
 // Pack entry k of the 8*NB_JUMP word grid (16- or 8-row tables).
 KT_HD void pack_table_word(JumpTable* tb, const int32_t* jx,
                            const int32_t* jy, const int32_t* jd, int k) {
@@ -109,9 +124,36 @@ KT_HD int jump_index(const uint32_t x[8], uint32_t sc) {
         return (int)(x[0] & (NB_JUMP - 1));
 }
 
+// The production walk.  The probe kernels (probe_kernels.cu) give
+// walk_thread another of these types, with one component switched, and
+// attribute the step's cost from the timing deltas; C++17 has no
+// class-type template arguments, hence a type of constants.
+struct Production {
+    static constexpr bool no_inv = false;     // dxi = dx: no inversion
+    static constexpr bool no_sqr = false;     // lam in place of lam^2
+    static constexpr bool no_y3mul = false;   // y3 = (qx - x3) - qy
+    static constexpr bool extra_mul = false;  // y3 *= lam after the add
+    static constexpr bool extra_sub = false;  // y3 -= lam after the add
+    static constexpr bool no_dp = false;      // no DP test, no capture
+    static constexpr bool fixed_gather = false;  // jmp = step & 31
+    // the forward pass reads each lane's y (64 B) and writes it back
+    // unchanged: 128 B more traffic per lane and step, no arithmetic
+    static constexpr bool extra_traffic = false;
+};
+
+// Jump index of a lane in variant V: the production index, or the
+// step's when V::fixed_gather.
+template <bool SYM, class V>
+KT_HD int lane_jump(const uint32_t x[8], uint32_t sc, int step) {
+    if constexpr (V::fixed_gather)
+        return step & (NB_JUMP - 1);
+    else
+        return jump_index<SYM>(x, sc);
+}
+
 // The whole launch window (nb_run steps) for thread t of block b.
 // `acc` is the thread's scratch for the GROUP prefix products.
-template <bool SYM>
+template <bool SYM, class V = Production>
 KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
                        int t, uint32_t (*acc)[8]) {
     const uint32_t mlo = (uint32_t)a.masks[0] | ((uint32_t)a.masks[1] << 16);
@@ -120,20 +162,27 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
     const size_t n = a.n;
     for (int step = 0; step < a.nb_run; ++step) {
         uint32_t x[8], q[8], dx[8], inv[8];
-        // forward: prefix products of dx over the group
-        for (int g = 0; g < GROUP; ++g) {
-            const size_t lane = base + (size_t)g * THREADS;
-            load_words(x, 8, a.px, n, lane);
-            const uint32_t sc = SYM ? (uint32_t)a.symclass[lane] : 0u;
-            const int j = jump_index<SYM>(x, sc);
-            for (int w = 0; w < 8; ++w) q[w] = tb.x[w][j];
-            fe_sub(dx, q, x);
-            if (g == 0)
-                fe_copy(acc[0], dx);
-            else
-                fe_mul(acc[g], acc[g - 1], dx);
+        if constexpr (!V::no_inv) {
+            // forward: prefix products of dx over the group
+            for (int g = 0; g < GROUP; ++g) {
+                const size_t lane = base + (size_t)g * THREADS;
+                load_words(x, 8, a.px, n, lane);
+                [[maybe_unused]] int32_t held[16];
+                if constexpr (V::extra_traffic)
+                    load_limbs_volatile(held, 16, a.py, n, lane);
+                const uint32_t sc = SYM ? (uint32_t)a.symclass[lane] : 0u;
+                const int j = lane_jump<SYM, V>(x, sc, step);
+                for (int w = 0; w < 8; ++w) q[w] = tb.x[w][j];
+                fe_sub(dx, q, x);
+                if (g == 0)
+                    fe_copy(acc[0], dx);
+                else
+                    fe_mul(acc[g], acc[g - 1], dx);
+                if constexpr (V::extra_traffic)
+                    store_limbs_volatile(a.py, held, 16, n, lane);
+            }
+            fe_inv(inv, acc[GROUP - 1]);
         }
-        fe_inv(inv, acc[GROUP - 1]);
         // backward: unwind the inverse lane by lane, then the affine add
         for (int g = GROUP - 1; g >= 0; --g) {
             const size_t lane = base + (size_t)g * THREADS;
@@ -143,14 +192,16 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
             load_words(y, 8, a.py, n, lane);
             load_words(dd, 4, a.d, n, lane);
             const uint32_t sc = SYM ? (uint32_t)a.symclass[lane] : 0u;
-            const int j = jump_index<SYM>(x, sc);
+            const int j = lane_jump<SYM, V>(x, sc, step);
             for (int w = 0; w < 8; ++w) {
                 q[w] = tb.x[w][j];
                 qy[w] = tb.y[w][j];
             }
             for (int w = 0; w < 4; ++w) qd[w] = tb.d[w][j];
             fe_sub(dx, q, x);
-            if (g > 0) {
+            if constexpr (V::no_inv) {
+                fe_copy(dxi, dx);
+            } else if (g > 0) {
                 fe_mul(dxi, inv, acc[g - 1]);  // 1/dx_g
                 fe_mul(inv, inv, dx);          // 1/(dx_0 ... dx_{g-1})
             } else {
@@ -158,13 +209,21 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
             }
             fe_sub(t1, qy, y);
             fe_mul(lam, t1, dxi);
-            fe_sqr(x3, lam);
+            if constexpr (V::no_sqr)
+                fe_copy(x3, lam);
+            else
+                fe_sqr(x3, lam);
             fe_sub(x3, x3, x);
             fe_sub(x3, x3, q);
             fe_canon(x3);
             fe_sub(t1, q, x3);
-            fe_mul(y3, lam, t1);
+            if constexpr (V::no_y3mul)
+                fe_copy(y3, t1);
+            else
+                fe_mul(y3, lam, t1);
             fe_sub(y3, y3, qy);
+            if constexpr (V::extra_mul) fe_mul(y3, y3, lam);
+            if constexpr (V::extra_sub) fe_sub(y3, y3, lam);
             add_u128(dd, qd);
             if constexpr (SYM) {
                 fe_canon(y3);
@@ -181,7 +240,7 @@ KT_HD void walk_thread(const WalkArgs& a, const JumpTable& tb, size_t b,
             store_words(a.px, x3, 8, n, lane);
             store_words(a.py, y3, 8, n, lane);
             store_words(a.d, dd, 4, n, lane);
-            if (((x3[6] & mlo) | (x3[7] & mhi)) == 0) {
+            if (!V::no_dp && ((x3[6] & mlo) | (x3[7] & mhi)) == 0) {
                 const int c = a.count[lane];
                 if (c < a.slots) {
                     for (int w = 0; w < DPX_ROWS / 2; ++w) {

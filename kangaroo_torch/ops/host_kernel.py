@@ -1,0 +1,196 @@
+"""The kernels' own C++ bodies built for the CPU with g++.
+
+`csrc/host_shim.cpp` compiles `field.cuh`, `walk.cuh` and `probes.cuh`
+-- the code nvcc builds into the walk kernel and the probe kernels --
+for the host and exposes it through a plain C interface: the field ops
+over arrays of 8-word elements, the walk kernel's launch run thread by
+thread (`kt_walk_host`), and the probe kernels' launches
+(`kt_*_host`).  `-check` runs the walk body through it on the CPU, and
+the tests hold it against the JAX package and the plain versions.  The
+library is built into `build/kangaroo_torch/` at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..utils.build import build_shared
+from . import jump_cuda
+from .probe_ref import (DELTA_VARIANTS, F32_OPS, FIELD_OPS, INV_VARIANTS,
+                        RAW_OPS)
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+_SIGNATURES = {
+    "kt_lane_quantum": ([], _I),
+    "kt_fe_add_n": ([_P, _P, _P, _I], None),
+    "kt_fe_sub_n": ([_P, _P, _P, _I], None),
+    "kt_fe_mul_n": ([_P, _P, _P, _I], None),
+    "kt_fe_sqr_n": ([_P, _P, _I], None),
+    "kt_fe_inv_n": ([_P, _P, _I], None),
+    "kt_add_u128_n": ([_P, _P, _I], None),
+    "kt_fe_canon_n": ([_P, _I], None),
+    "kt_fe_is_high_n": ([_P, _P, _I], None),
+    "kt_fe_neg_n": ([_P, _P, _I], None),
+    "kt_neg_u128_n": ([_P, _I], None),
+    "kt_walk_host": ([_P] * 7 + [_I] * 3 + [_P] * 5, _I),
+    "kt_field_chain_host": ([_I] + [_P] * 4 + [_I, _I], _I),
+    "kt_raw_chain_host": ([_I, _I, _P, _I, _I], _I),
+    "kt_delta_host": ([_I] + [_P] * 7 + [_I] * 3 + [_P] * 4, _I),
+    "kt_inv_chain_host": ([_I, _I, _P, _I, _I], _I),
+}
+
+
+def build() -> Path:
+    """Build the host library (g++); returns its path."""
+    return build_shared(
+        "libkangaroo_host_shim.so", [_CSRC / "host_shim.cpp"],
+        ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"],
+        deps=[_CSRC / "field.cuh", _CSRC / "walk.cuh", _CSRC / "probes.cuh"],
+        timeout=300,
+    )
+
+
+def load() -> ctypes.CDLL:
+    """The host library, built and bound on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = res
+            _lib = lib
+        return _lib
+
+
+def call(name: str, *args) -> None:
+    """lib.name(*args) for an entry point that returns 0 on success;
+    raises ValueError when the body refuses its arguments."""
+    rc = getattr(load(), name)(*args)
+    if rc:
+        raise ValueError(f"{name} refused its arguments (returned {rc})")
+
+
+def walk(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
+         slots: int = 2, symmetry: bool = False, symclass=None):
+    """The walk kernel's body on the host, with the contract of
+    `jump_cuda.jump_steps_with_dp` on contiguous int32 CPU tensors: the
+    herd and the class (zeros when symclass is None) updated in place,
+    fresh slot outputs; returns (px, py, d, count, dpx, dpd, step[,
+    symclass])."""
+    n = px.shape[1]
+    if symmetry and symclass is None:
+        symclass = torch.zeros(n, dtype=torch.int32)
+    count, dpx, dpd, step = jump_cuda.check_walk_args(
+        px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
+        symclass if symmetry else None)
+    call("kt_walk_host",
+         *(t.data_ptr() for t in (px, py, d, jx, jy, jd, dp_masks)),
+         n, nb_run, slots,
+         *(t.data_ptr() for t in (count, dpx, dpd, step)),
+         symclass.data_ptr() if symmetry else None)
+    out = (px, py, d, count, dpx, dpd, step)
+    return out + (symclass,) if symmetry else out
+
+
+def to_words(limbs: torch.Tensor) -> np.ndarray:
+    """(2k, N) int32 16-bit limbs -> (N, k) uint32 words (the layout of
+    the kt_fe_*_n entry points)."""
+    a = limbs.cpu().numpy().astype(np.uint32)
+    return np.ascontiguousarray((a[0::2] | (a[1::2] << 16)).T)
+
+
+def from_words(words: np.ndarray) -> torch.Tensor:
+    """(N, k) uint32 words -> (2k, N) int32 limbs."""
+    w = words.T
+    out = np.empty((2 * w.shape[0], w.shape[1]), dtype=np.int32)
+    out[0::2] = w & 0xFFFF
+    out[1::2] = w >> 16
+    return torch.from_numpy(out)
+
+
+def fe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """field.cuh's fe_mul on (16, N) limbs (relaxed result)."""
+    wa, wb = to_words(a), to_words(b)
+    r = np.empty_like(wa)
+    load().kt_fe_mul_n(r.ctypes.data, wa.ctypes.data, wb.ctypes.data,
+                       wa.shape[0])
+    return from_words(r)
+
+
+def fe_inv(a: torch.Tensor) -> torch.Tensor:
+    """field.cuh's fe_inv (the Fermat chain) on (16, N) limbs."""
+    wa = to_words(a)
+    r = np.empty_like(wa)
+    load().kt_fe_inv_n(r.ctypes.data, wa.ctypes.data, wa.shape[0])
+    return from_words(r)
+
+
+def _need(t: torch.Tensor, shape, dtype=torch.int32) -> None:
+    """The native body reads `shape` elements of `dtype` from t."""
+    if (t.device.type != "cpu" or t.dtype != dtype
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+        raise ValueError(f"contiguous {tuple(shape)} {dtype} on the CPU "
+                         f"required, got {tuple(t.shape)} {t.dtype} on "
+                         f"{t.device}")
+
+
+def field_chain(op: str, x: torch.Tensor, b: torch.Tensor, rounds: int,
+                jx=None, jy=None) -> torch.Tensor:
+    """P1's body (probe_cuda.field_chain) on the host, x in place."""
+    if op == "gather":
+        jy = jx
+    _need(x, (16, x.shape[1]))
+    _need(b, x.shape)
+    for t in (jx, jy):
+        if t is not None:
+            _need(t, (16, 32))
+    call("kt_field_chain_host", FIELD_OPS.index(op), x.data_ptr(),
+         b.data_ptr(), None if jx is None else jx.data_ptr(),
+         None if jy is None else jy.data_ptr(), x.shape[1], rounds)
+    return x
+
+
+def raw_chain(op: str, x: torch.Tensor, inner: int,
+              ilp: int = 4) -> torch.Tensor:
+    """P2's body (probe_cuda.raw_chain) on the host, x in place."""
+    _need(x, (x.numel(),),
+          torch.float32 if op in F32_OPS else torch.int32)
+    call("kt_raw_chain_host", RAW_OPS.index(op), ilp, x.data_ptr(),
+         x.numel(), inner)
+    return x
+
+
+def delta_walk(variant: str, px, py, d, jx, jy, jd, dp_masks, nb_run: int,
+               slots: int):
+    """P3's body (probe_cuda.delta_walk) on the host, the herd in place;
+    returns (px, py, d, count, dpx, dpd, step)."""
+    count, dpx, dpd, step = jump_cuda.check_walk_args(
+        px, py, d, jx, jy, jd, dp_masks, nb_run, slots)
+    call("kt_delta_host", DELTA_VARIANTS.index(variant),
+         *(t.data_ptr() for t in (px, py, d, jx, jy, jd, dp_masks)),
+         px.shape[1], nb_run, slots,
+         *(t.data_ptr() for t in (count, dpx, dpd, step)))
+    return px, py, d, count, dpx, dpd, step
+
+
+def inv_chain(variant: str, x: torch.Tensor, iters: int,
+              group: int = 128) -> torch.Tensor:
+    """P4's body (probe_cuda.inv_chain) on the host, x in place."""
+    _need(x, (16, x.shape[1]))
+    call("kt_inv_chain_host", INV_VARIANTS.index(variant), group,
+         x.data_ptr(), x.shape[1], iters)
+    return x

@@ -88,13 +88,15 @@ def imad_per_jump() -> float:
     return (muls * MUL_IMAD + sqrs * SQR_IMAD) / GROUP
 
 
-def bound_ms(n: int, nb_run: int, slots: int,
-             symmetry: bool = False) -> tuple:
+def bound_ms(n: int, nb_run: int, slots: int, symmetry: bool = False,
+             imad: Optional[float] = None) -> tuple:
     """Least time for one launch of n lanes x nb_run jumps on an H100
     SXM: (ms, "operations" or "bytes").  The bytes are the function's own
     need: the herd (and in symmetry mode the class row) read once, herd
-    and slot outputs written once."""
-    ops_s = n * nb_run * imad_per_jump() / IMAD_PEAK
+    and slot outputs written once.  `imad` replaces imad_per_jump() for a
+    variant of the walk (the probes)."""
+    per_jump = imad_per_jump() if imad is None else imad
+    ops_s = n * nb_run * per_jump / IMAD_PEAK
     sc = int(symmetry)
     rows_in = 16 + 16 + 8 + sc
     rows_out = 16 + 16 + 8 + sc + 1 + slots * (10 + 8 + 1)
@@ -152,6 +154,35 @@ def _check(t: torch.Tensor, name: str, shape, device) -> None:
                          f"{tuple(t.shape)}")
 
 
+def check_walk_args(px, py, d, jx, jy, jd, dp_masks, nb_run: int,
+                    slots: int, symclass: Optional[torch.Tensor] = None):
+    """Check a window's arguments as the walk kernels take them, and
+    allocate its zeroed slot outputs; returns (count, dpx, dpd, step)."""
+    n = px.shape[1]
+    dev = px.device
+    if n % LANE_QUANTUM:
+        raise ValueError(f"herd size {n} is not a multiple of the kernel's "
+                         f"lane quantum {LANE_QUANTUM}")
+    if not 0 < nb_run < MAX_NB_RUN or slots < 1:
+        raise ValueError(f"nb_run must be in [1, {MAX_NB_RUN}) and slots "
+                         f">= 1, got {nb_run}, {slots}")
+    checks = [
+        (px, "px", (16, n)), (py, "py", (16, n)), (d, "d", (8, n)),
+        (jx, "jx", (16, 32)), (jy, "jy", (16, 32)), (jd, "jd", (8, 32)),
+        (dp_masks, "dp_masks", (4,)),
+    ]
+    if symclass is not None:
+        checks.append((symclass, "symclass", (n,)))
+    for t, name, shape in checks:
+        _check(t, name, shape, dev)
+    count = torch.zeros((n,), dtype=torch.int32, device=dev)
+    dpx = torch.zeros((slots, jump_ref.DPX_ROWS, n), dtype=torch.int32,
+                      device=dev)
+    dpd = torch.zeros((slots, 8, n), dtype=torch.int32, device=dev)
+    step = torch.zeros((slots, n), dtype=torch.int32, device=dev)
+    return count, dpx, dpd, step
+
+
 def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
                        slots: int = 2, symmetry: bool = False,
                        symclass: Optional[torch.Tensor] = None):
@@ -173,36 +204,18 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
         )
     global LAUNCHES, SYM_LAUNCHES
     n = px.shape[1]
-    dev = px.device
-    if n % LANE_QUANTUM:
-        raise ValueError(f"herd size {n} is not a multiple of the kernel's "
-                         f"lane quantum {LANE_QUANTUM}")
-    if not 0 < nb_run < MAX_NB_RUN or slots < 1:
-        raise ValueError(f"nb_run must be in [1, {MAX_NB_RUN}) and slots "
-                         f">= 1, got {nb_run}, {slots}")
     if symmetry and symclass is None:
-        symclass = torch.zeros((n,), dtype=torch.int32, device=dev)
-    checks = [
-        (px, "px", (16, n)), (py, "py", (16, n)), (d, "d", (8, n)),
-        (jx, "jx", (16, 32)), (jy, "jy", (16, 32)), (jd, "jd", (8, 32)),
-        (dp_masks, "dp_masks", (4,)),
-    ]
-    if symmetry:
-        checks.append((symclass, "symclass", (n,)))
-    for t, name, shape in checks:
-        _check(t, name, shape, dev)
-    count = torch.zeros((n,), dtype=torch.int32, device=dev)
-    dpx = torch.zeros((slots, jump_ref.DPX_ROWS, n), dtype=torch.int32,
-                      device=dev)
-    dpd = torch.zeros((slots, 8, n), dtype=torch.int32, device=dev)
-    step = torch.zeros((slots, n), dtype=torch.int32, device=dev)
+        symclass = torch.zeros((n,), dtype=torch.int32, device=px.device)
+    count, dpx, dpd, step = check_walk_args(
+        px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
+        symclass if symmetry else None)
     lib = load()
     err = lib.kt_jump_steps(
         px.data_ptr(), py.data_ptr(), d.data_ptr(), jx.data_ptr(),
         jy.data_ptr(), jd.data_ptr(), dp_masks.data_ptr(), n, nb_run, slots,
         count.data_ptr(), dpx.data_ptr(), dpd.data_ptr(), step.data_ptr(),
         symclass.data_ptr() if symmetry else None,
-        torch.cuda.current_stream(dev).cuda_stream,
+        torch.cuda.current_stream(px.device).cuda_stream,
     )
     if err:
         raise RuntimeError(

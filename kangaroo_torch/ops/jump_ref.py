@@ -102,6 +102,17 @@ def jump_step(px, py, d, jx, jy, jd, symclass=None):
     return nx, ny, nd, symclass ^ high
 
 
+def record_dps(hit, i, px, d, count, dpx, dpd, step) -> None:
+    """Capture step i's DP hits into the free slots and count them (in
+    place on count and the slot tensors)."""
+    for s in range(dpx.shape[0]):
+        sel = hit & (count == s)
+        dpx[s] = torch.where(sel[None, :], px[:DPX_ROWS], dpx[s])
+        dpd[s] = torch.where(sel[None, :], d, dpd[s])
+        step[s] = torch.where(sel, i, step[s])
+    count += hit.to(torch.int32)
+
+
 def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
                        slots: int = 2, symmetry: bool = False,
                        symclass=None):
@@ -131,13 +142,7 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
             px, py, d, symclass = jump_step(px, py, d, jx, jy, jd, symclass)
         else:
             px, py, d = jump_step(px, py, d, jx, jy, jd)
-        hit = is_dp(px, dp_masks)
-        for s in range(slots):
-            sel = hit & (count == s)
-            dpx[s] = torch.where(sel[None, :], px[:DPX_ROWS], dpx[s])
-            dpd[s] = torch.where(sel[None, :], d, dpd[s])
-            step[s] = torch.where(sel, i, step[s])
-        count += hit.to(torch.int32)
+        record_dps(is_dp(px, dp_masks), i, px, d, count, dpx, dpd, step)
     if symmetry:
         return px, py, d, count, dpx, dpd, step, symclass
     return px, py, d, count, dpx, dpd, step

@@ -1,0 +1,372 @@
+"""The probe kernels on the card: wrapper of `csrc/probe_kernels.cu`.
+
+Replaces the repository's five TPU probe kernels with four hand-written
+CUDA C++ kernel templates for sm_90a, built by nvcc at first use and
+bound with ctypes:
+
+  field_chain  P1 `kt_field_chain<Op>`, scripts/pkbench.py:62 run_chain;
+  raw_chain    P2 `kt_raw_chain<Op, ILP>`, scripts/probe_ops.py:49 and
+               scripts/layout_probe.py:109;
+  delta_walk   P3 `kt_delta_kernel<V>`, scripts/pkdelta.py:213;
+  inv_chain    P4 `kt_inv_chain<Var, G>`, scripts/pkinv.py:129.
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor
+takes the plain version in `probe_ref`.  On the card the state tensor
+is updated IN PLACE and returned (so that a timed launch is the launch
+alone); the launch goes on the current stream and does not synchronize.
+`LAUNCHES` counts the launches per kernel, keyed as `kernel_key` names
+them.
+
+What bounds each: `bound_ms` takes the issue slots per element and round
+of each instruction class, counted from the source (`*_counts` below),
+over the card's derived peak for that class, against the bytes the
+function moves (each state array read and written once).
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import threading
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..utils.build import build_shared_parts
+from . import jump_cuda, probe_ref
+from .probe_ref import (DELTA_VARIANTS, F32_OPS, FIELD_OPS, INV_VARIANTS,
+                        RAW_OPS)
+
+#: launches per kernel in this process, keyed by kernel_key()
+LAUNCHES: Dict[str, int] = collections.Counter()
+
+THREADS = jump_cuda.THREADS
+GROUP = jump_cuda.GROUP
+LANE_QUANTUM = jump_cuda.LANE_QUANTUM
+# (op, ILP) pairs of kt_raw_chain that probe_kernels.cu instantiates
+RAW_ILPS = {op: (4,) for op in RAW_OPS}
+RAW_ILPS["layout"] = (1, 2, 4, 16)
+RAW_ILPS["empty"] = (1,)
+# G of kt_inv_chain per variant
+INV_GROUPS = {"cur": (32, 64, 128, 256), "nodiv": (32, 64, 128, 256),
+              "none": (128,)}
+
+# ---- the card's derived peaks (H100 SXM, compute capability 9.0) ----
+# Per SM and clock (NVIDIA's arithmetic-throughput table for compute
+# capability 9.0):
+# 64 32-bit integer multiply-adds, 128 fp32 adds, multiplies and fused
+# multiply-adds, 32 shared-memory words, and one warp instruction per
+# scheduler and clock (128 thread instructions).  Integer adds, logic
+# ops and shifts have no class of their own here: nvcc issues them on
+# the ALU pipe or the multiply-add pipe (IMAD.IADD, IMAD.SHL, IMAD.MOV),
+# so they count against the issue rate only.  The clock is the one
+# implied by jump_cuda.IMAD_PEAK (half the data sheet's 67 TFLOP/s fp32
+# rate over 64 x 132 SMs).  Derived, not measured: the raw_chain rows
+# measure them.
+SMS = 132
+CLOCK_HZ = jump_cuda.IMAD_PEAK / (64 * SMS)
+PER_SM_CLOCK = {"imad": 64, "fp32": 128, "lds": 32, "issue": 128}
+PEAK = {k: v * SMS * CLOCK_HZ for k, v in PER_SM_CLOCK.items()}
+
+_INV_IMAD = (jump_cuda.INV_SQRS * jump_cuda.SQR_IMAD
+             + jump_cuda.INV_MULS * jump_cuda.MUL_IMAD)
+# Integer add and logic instructions per op, counted from field.cuh at
+# one instruction per word of a carry or borrow chain (the carry flag
+# carries it): fe_sub 8 words and two fe_sub_c passes of 8; fe_add 8 and
+# fe_fold; fe_fold two passes of 8 (and 2 wide multiplies by 977, as
+# IMAD); fe_canon the 8-word carry chain of r + (2^32 + 977) (the copy
+# only when it carries out).
+SUB_ALU = 24
+FOLD = {"alu": 16, "imad": 4}
+CANON_ALU = 8
+
+FIELD_COUNTS = {
+    "mul": {"imad": jump_cuda.MUL_IMAD},
+    "sqr": {"imad": jump_cuda.SQR_IMAD},
+    "sub": {"alu": SUB_ALU},
+    "add": {"alu": 8 + FOLD["alu"], "imad": FOLD["imad"]},
+    "fold": FOLD,
+    "canon": {"alu": CANON_ALU},
+    "inv": {"imad": _INV_IMAD},
+    "gather": {"alu": 9, "lds": 8},   # index, 8 xors; 8 table words
+}
+# per element and iteration, the loop-index mix shared by a thread's
+# chains not counted; a 64-bit wide multiply-add counted as 2 IMAD.  The
+# empty loop's x + 1 per iteration is summed in closed form by the
+# compilers: no operation per iteration.
+RAW_COUNTS = {
+    "u32_add": {"alu": 2}, "u32_mul": {"imad": 1, "alu": 1},
+    "mask16": {"alu": 3}, "shr16": {"alu": 3},
+    "i32_mul": {"imad": 1, "alu": 1}, "f32_add": {"fp32": 3},
+    "f32_mul": {"fp32": 3}, "f32_fma": {"fp32": 3},
+    "wide": {"imad": 2, "alu": 2}, "layout": {"imad": 1, "alu": 1},
+    "empty": {},
+}
+# the instruction each raw row measures (the mnemonics nvcc may use for
+# it), and how many of it one element-iteration issues
+RAW_SASS = {
+    "u32_add": ("IADD3", ("IADD3", "VIADD"), 1),
+    "u32_mul": ("IMAD", ("IMAD",), 1),
+    "mask16": ("LOP3", ("LOP3", "PRMT"), 2),
+    "shr16": ("SHF", ("SHF", "LEA.HI"), 1),
+    "i32_mul": ("IMAD", ("IMAD",), 1),
+    "f32_add": ("FADD", ("FADD",), 3),
+    "f32_mul": ("FMUL", ("FMUL",), 1),
+    "f32_fma": ("FFMA", ("FFMA",), 1),
+    "wide": ("IMAD.WIDE.U32", ("IMAD.WIDE",), 1),
+    "layout": ("IMAD", ("IMAD",), 1),
+}
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def kernel_key(family: str, name: str, arg: int = 0) -> str:
+    """The LAUNCHES key of a kernel: field_chain/<op>, raw_chain/<op>
+    @ILP, delta/<variant>, inv_chain/<variant>@G."""
+    if family in ("raw_chain", "inv_chain"):
+        return f"{family}/{name}@{arg}"
+    return f"{family}/{name}"
+
+
+# the parts of probe_kernels.cu (its KT_PROBE_PART): the entry points
+# with P1's light chains and P2, P1's fe_inv, P1's step, P4 in two, P3's
+# walk variants in four
+BUILD_PARTS = 9
+
+
+def build() -> Path:
+    """Build the probe library (nvcc, sm_90a), its parts at once;
+    returns its path."""
+    return build_shared_parts(
+        "libkangaroo_probes.so", _CSRC / "probe_kernels.cu",
+        [[f"-DKT_PROBE_PART={i}"] for i in range(BUILD_PARTS)],
+        ["nvcc", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+         "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
+        ["nvcc", "-shared"],
+        deps=[_CSRC / "field.cuh", _CSRC / "walk.cuh", _CSRC / "probes.cuh"],
+    )
+
+
+def load() -> ctypes.CDLL:
+    """The probe library, built and bound on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            sigs = {
+                "kt_probe_threads": ([], _I),
+                "kt_probe_group": ([], _I),
+                "kt_field_chain_launch": ([_I] + [_P] * 4 + [_I] * 3 + [_P],
+                                          _I),
+                "kt_raw_chain_launch": ([_I, _I, _P, _I, _I, _I, _P], _I),
+                "kt_delta_launch": ([_I] + [_P] * 7 + [_I] * 3 + [_P] * 5, _I),
+                "kt_inv_chain_launch": ([_I, _I, _P, _I, _I, _P], _I),
+                "kt_probe_attrs": ([_I, _I, _I, _I, _P], _I),
+                "kt_probe_error_string": ([_I], ctypes.c_char_p),
+            }
+            for name, (args, res) in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = res
+            if (lib.kt_probe_threads(), lib.kt_probe_group()) != (THREADS,
+                                                                   GROUP):
+                raise RuntimeError("probe kernel geometry mismatch")
+            _lib = lib
+        return _lib
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.kt_probe_error_string(err).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _need(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device or t.dtype != dtype:
+        raise ValueError(f"{name}: {dtype} on {device} required, got "
+                         f"{t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: contiguous {tuple(shape)} required, got "
+                         f"{tuple(t.shape)}")
+
+
+def field_chain(op: str, x: torch.Tensor, b: torch.Tensor, rounds: int,
+                jx: Optional[torch.Tensor] = None,
+                jy: Optional[torch.Tensor] = None,
+                smem: int = 0) -> torch.Tensor:
+    """P1: `rounds` rounds of op on x (16, n) with b fixed (see
+    probe_ref.field_chain).  n is a multiple of THREADS, of LANE_QUANTUM
+    for the step; the gather needs jx, the step jx and jy ((16, 32));
+    `smem` bytes of dynamic shared memory per block hold the occupancy
+    down."""
+    if not x.is_cuda:
+        return probe_ref.field_chain(op, x, b, rounds, jx, jy)
+    if op not in FIELD_OPS:
+        raise ValueError(f"unknown field op {op!r}")
+    n = x.shape[1]
+    quantum = LANE_QUANTUM if op == "step" else THREADS
+    if n % quantum:
+        raise ValueError(f"{n} lanes is not a multiple of {quantum}")
+    dev = x.device
+    _need(x, "x", torch.int32, (16, n), dev)
+    _need(b, "b", torch.int32, (16, n), dev)
+    if op == "gather":
+        jy = jx
+    tabs = (jx, jy) if op in ("gather", "step") else (None, None)
+    for t, name in zip(tabs, ("jx", "jy")):
+        if t is not None:
+            _need(t, name, torch.int32, (16, 32), dev)
+        elif op in ("gather", "step"):
+            raise ValueError(f"{op} needs the table {name}")
+    lib = load()
+    _raise(lib, lib.kt_field_chain_launch(
+        FIELD_OPS.index(op), x.data_ptr(), b.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in tabs), n, rounds,
+        smem, _stream(x)), f"field chain {op}")
+    LAUNCHES[kernel_key("field_chain", op)] += 1
+    return x
+
+
+def raw_chain(op: str, x: torch.Tensor, inner: int, ilp: int = 4,
+              smem: int = 0) -> torch.Tensor:
+    """P2: `inner` iterations of op on every element of x ((E,) int32,
+    float32 for the f32 ops), ILP chains per thread, `smem` bytes of
+    dynamic shared memory per block to hold the occupancy down (see
+    probe_ref.raw_chain)."""
+    if not x.is_cuda:
+        return probe_ref.raw_chain(op, x, inner)
+    if op not in RAW_OPS or ilp not in RAW_ILPS[op]:
+        raise ValueError(f"no raw chain {op!r} at ILP {ilp}")
+    dtype = torch.float32 if op in F32_OPS else torch.int32
+    _need(x, "x", dtype, (x.numel(),), x.device)
+    if x.numel() % ilp:
+        raise ValueError(f"{x.numel()} elements is not a multiple of {ilp}")
+    lib = load()
+    _raise(lib, lib.kt_raw_chain_launch(
+        RAW_OPS.index(op), ilp, x.data_ptr(), x.numel(), inner, smem,
+        _stream(x)), f"raw chain {op}")
+    LAUNCHES[kernel_key("raw_chain", op, ilp)] += 1
+    return x
+
+
+def delta_walk(variant: str, px, py, d, jx, jy, jd, dp_masks, nb_run: int,
+               slots: int):
+    """P3: one window of walk variant `variant`; same contract as
+    jump_cuda.jump_steps_with_dp in plain mode (the herd updated in
+    place, fresh slot outputs)."""
+    if not px.is_cuda:
+        return probe_ref.delta_walk(variant, px, py, d, jx, jy, jd,
+                                    dp_masks, nb_run, slots)
+    if variant not in DELTA_VARIANTS:
+        raise ValueError(f"unknown walk variant {variant!r}")
+    count, dpx, dpd, step = jump_cuda.check_walk_args(
+        px, py, d, jx, jy, jd, dp_masks, nb_run, slots)
+    lib = load()
+    _raise(lib, lib.kt_delta_launch(
+        DELTA_VARIANTS.index(variant),
+        *(t.data_ptr() for t in (px, py, d, jx, jy, jd, dp_masks)),
+        px.shape[1], nb_run, slots,
+        *(t.data_ptr() for t in (count, dpx, dpd, step)), _stream(px)),
+        f"walk variant {variant}")
+    LAUNCHES[kernel_key("delta", variant)] += 1
+    return px, py, d, count, dpx, dpd, step
+
+
+def inv_chain(variant: str, x: torch.Tensor, iters: int,
+              group: int = GROUP) -> torch.Tensor:
+    """P4: `iters` rounds of x <- canon(fn(x) - x) | 1 on x (16, n), n a
+    multiple of THREADS * group (see probe_ref.inv_chain)."""
+    if not x.is_cuda:
+        return probe_ref.inv_chain(variant, x, iters, group)
+    if variant not in INV_VARIANTS or group not in INV_GROUPS[variant]:
+        raise ValueError(f"no inversion chain {variant!r} at G = {group}")
+    n = x.shape[1]
+    if n % (THREADS * group):
+        raise ValueError(f"{n} lanes is not a multiple of {THREADS} x "
+                         f"{group}")
+    _need(x, "x", torch.int32, (16, n), x.device)
+    lib = load()
+    _raise(lib, lib.kt_inv_chain_launch(
+        INV_VARIANTS.index(variant), group, x.data_ptr(), n, iters,
+        _stream(x)), f"inversion chain {variant}")
+    LAUNCHES[kernel_key("inv_chain", variant, group)] += 1
+    return x
+
+
+# ---- attributes and bounds ----
+
+_FAMILIES = {"field_chain": (0, FIELD_OPS), "raw_chain": (1, RAW_OPS),
+             "delta": (2, DELTA_VARIANTS), "inv_chain": (3, INV_VARIANTS)}
+
+
+def attrs(family: str, name: str, arg: int = 0, smem: int = 0) -> dict:
+    """Registers and local bytes per thread, static shared bytes per
+    block and resident blocks per SM of a probe kernel (with `smem` bytes
+    of dynamic shared memory)."""
+    fam, names = _FAMILIES[family]
+    out = (ctypes.c_int * 4)()
+    lib = load()
+    err = lib.kt_probe_attrs(fam, names.index(name), arg, smem, out)
+    _raise(lib, err, f"attributes of {family}/{name}")
+    return {"regs": out[0], "local_bytes": out[1], "smem": out[2] + smem,
+            "blocks_per_sm": out[3]}
+
+
+def bound_ms(counts: Dict[str, float], work: float,
+             nbytes: float) -> Tuple[float, str]:
+    """Least time on an H100 SXM for `work` element-rounds issuing
+    `counts` slots of each class each (alu: integer adds and logic, on
+    the issue rate only), against `nbytes` of device memory traffic:
+    (ms, "operations" or "bytes")."""
+    per = [n / PEAK[k] for k, n in counts.items() if n and k in PEAK]
+    per.append(sum(counts.values()) / PEAK["issue"])
+    ops_s = work * max(per)
+    bytes_s = nbytes / jump_cuda.HBM_RATE
+    if ops_s >= bytes_s:
+        return ops_s * 1e3, "operations"
+    return bytes_s * 1e3, "bytes"
+
+
+def field_counts(op: str) -> Dict[str, float]:
+    """Slots per lane and round of a field chain (the step: the walk's
+    multiplies, jump_cuda.imad_per_jump)."""
+    if op == "step":
+        return {"imad": jump_cuda.imad_per_jump()}
+    return FIELD_COUNTS[op]
+
+
+def delta_imad_per_jump(variant: str) -> float:
+    """IMAD slots per lane and jump of a walk variant (as
+    jump_cuda.imad_per_jump, with the variant's multiplies)."""
+    g = GROUP
+    muls = 3 * (g - 1) + jump_cuda.INV_MULS + 2 * g
+    sqrs = jump_cuda.INV_SQRS + g
+    if variant == "no_inv":
+        muls, sqrs = 2 * g, g
+    elif variant == "no_sqr":
+        sqrs -= g
+    elif variant == "no_y3mul":
+        muls -= g
+    elif variant == "extra_mul":
+        muls += g
+    return (muls * jump_cuda.MUL_IMAD + sqrs * jump_cuda.SQR_IMAD) / g
+
+
+def inv_counts(variant: str, group: int) -> Dict[str, float]:
+    """Slots per lane and iteration of an inversion chain."""
+    alu = 2 * SUB_ALU + CANON_ALU if variant == "none" else SUB_ALU + CANON_ALU
+    if variant == "none":
+        return {"alu": alu}
+    imad = 3 * (group - 1) * jump_cuda.MUL_IMAD
+    if variant == "cur":
+        imad += _INV_IMAD
+    return {"imad": imad / group, "alu": alu}

@@ -1,0 +1,168 @@
+"""Per-op cost of the walk kernel's primitives on the card.
+
+The counterpart of scripts/pkbench.py: one kernel per primitive chains
+it `rounds` times with a data dependency (`kt_field_chain<Op>`), so the
+per-op cost is measured as the card executes it.
+
+    python -m kangaroo_torch.probes.pkbench [lanes_log2=22]
+
+Rows: field.cuh's fe_mul, fe_sqr, fe_sub, fe_add, fe_fold (in place of
+the TPU's 16-bit-limb carry pass `_carry_exact(16)`, which has no
+32-bit-word counterpart), fe_canon, fe_inv (the Fermat chain in place of
+`modinv`, on every lane and on one block of 128 lanes), the
+shared-memory table gather, a jump step without DP or distance on the
+walk's geometry (G = 128 lanes per thread, one grouped inversion),
+`batch_inv(stop=128)` as pkinv's `cur` at G = 128, and the production
+walk kernel (dp 20, 2 slots).  fe_mul and fe_sqr run once more at the
+walk kernel's occupancy (2 blocks of 128 threads per SM, held there by
+dynamic shared memory): their chains alone need far fewer registers
+than the walk and run several times as many warps.  The default lane
+count is the walk's herd, so that the rows whose thread owns 128 lanes
+run the walk's 32768 threads.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from ..core.jumptable import create_jump_table
+from ..ops import jump_cuda, jump_ref, probe_cuda
+from ..ops.probe_ref import FIELD_OPS
+from ..utils import sass
+from . import common
+
+LANES_LOG2 = 22
+ROUNDS = {"mul": 256, "sqr": 256, "sub": 256, "add": 256, "fold": 256,
+          "canon": 256, "inv": 16, "gather": 256, "step": 64}
+INV_LANES = 128
+# instruction classes counted in each chain's SASS, and the one each
+# multiply or table row must hold
+SASS_CLASSES = ("IMAD.WIDE", "IMAD", "IADD3", "LOP3", "LDS")
+CLAIMS = {"mul": "IMAD.WIDE", "sqr": "IMAD.WIDE", "inv": "IMAD.WIDE",
+          "gather": "LDS"}
+BATCH_ITERS = 64
+LABELS = {"mul": "mulmod (fe_mul)", "sqr": "sqrmod (fe_sqr)",
+          "sub": "submod (fe_sub)", "add": "addmod (fe_add)",
+          "fold": "fe_fold (for carry_exact)",
+          "canon": "canonicalize (fe_canon)", "inv": "fe_inv (all lanes)",
+          "gather": "gather (shared table)",
+          "step": "jump step (no DP/dist)"}
+
+
+def _row(label, key, ms, rounds, lanes, bound):
+    return {"label": label, "key": key, "ms": ms, "rounds": rounds,
+            "lanes": lanes, "shape": f"{lanes} lanes x {rounds} rounds",
+            "us_per_op": ms * 1e3 / rounds,
+            "mlane_ops": lanes * rounds / ms / 1e3, "bound_ms": bound[0],
+            "bound_by": bound[1]}
+
+
+def inputs(n: int, dev):
+    """The chains' random inputs: a, b (16, n) and the tables tbl (the
+    gather's), jx, jy (16, 32)."""
+    rng = np.random.RandomState(7)
+    return tuple(common.limbs(rng, 16, w, dev) for w in (n, n, 32, 32, 32))
+
+
+def tables(op: str, tbl, jx, jy):
+    """The (jx, jy) arguments of op's chain."""
+    return (tbl, None) if op == "gather" else (jx, jy)
+
+
+def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
+    """Time every row at 2^lanes_log2 lanes; returns the rows."""
+    dev = common.require_card()
+    counts = common.sass_counts()
+    for op, insn in CLAIMS.items():
+        common.require_insn(counts,
+                            f"kt_field_chainILi{FIELD_OPS.index(op)}EE",
+                            (insn,))
+    n = 1 << lanes_log2
+    a, b, tbl, jx, jy = inputs(n, dev)
+    rows = []
+    for op in FIELD_OPS:
+        r = ROUNDS[op]
+        x = a.clone()
+        tabs = tables(op, tbl, jx, jy)
+        ms = common.time_ms(
+            lambda: probe_cuda.field_chain(op, x, b, r, *tabs))
+        bound = probe_cuda.bound_ms(probe_cuda.field_counts(op), n * r,
+                                    3 * 64 * n)
+        rows.append(_row(LABELS[op], probe_cuda.kernel_key("field_chain", op),
+                         ms, r, n, bound))
+    # the multiply and the squaring at the walk kernel's occupancy (2
+    # blocks of 128 threads per SM), where the chains alone would run
+    # several times as many warps
+    for op in ("mul", "sqr"):
+        x = a.clone()
+        r = ROUNDS[op]
+        occ = probe_cuda.attrs("field_chain", op, smem=common.OCC2_SMEM)
+        if occ["blocks_per_sm"] != 2:
+            raise RuntimeError(f"{op} at {common.OCC2_SMEM} B of shared "
+                               f"memory holds {occ['blocks_per_sm']} "
+                               f"blocks/SM")
+        ms = common.time_ms(lambda: probe_cuda.field_chain(
+            op, x, b, r, smem=common.OCC2_SMEM))
+        rows.append(_row(f"{LABELS[op]} @2 blocks/SM",
+                         probe_cuda.kernel_key("field_chain", op), ms, r, n,
+                         probe_cuda.bound_ms(probe_cuda.field_counts(op),
+                                             n * r, 3 * 64 * n)))
+    # the Fermat chain's latency: one block, one lane per thread
+    x = a[:, :INV_LANES].contiguous()
+    b1 = b[:, :INV_LANES].contiguous()
+    r = ROUNDS["inv"]
+    ms = common.time_ms(lambda: probe_cuda.field_chain("inv", x, b1, r))
+    rows.append(_row(f"fe_inv ({INV_LANES} lanes)",
+                     probe_cuda.kernel_key("field_chain", "inv"), ms, r,
+                     INV_LANES, probe_cuda.bound_ms(
+                         probe_cuda.field_counts("inv"), INV_LANES * r,
+                         3 * 64 * INV_LANES)))
+    x = a.clone()
+    ms = common.time_ms(
+        lambda: probe_cuda.inv_chain("cur", x, BATCH_ITERS, probe_cuda.GROUP))
+    rows.append(_row("batch_inv (cur, G=128)",
+                     probe_cuda.kernel_key("inv_chain", "cur", 128), ms,
+                     BATCH_ITERS, n, probe_cuda.bound_ms(
+                         probe_cuda.inv_counts("cur", 128), n * BATCH_ITERS,
+                         2 * 64 * n)))
+    tabs = [torch.from_numpy(t.astype(np.int32)).to(dev)
+            for t in create_jump_table(64).as_arrays()]
+    masks = jump_ref.dp_limb_masks(20, dev)
+    state = (a.clone(), b.clone(),
+             common.limbs(np.random.RandomState(8), 8, n, dev))
+    steps = 256
+    ms = common.time_ms(lambda: jump_cuda.jump_steps_with_dp(
+        *state, *tabs, masks, nb_run=steps, slots=2))
+    rows.append(_row("full kernel step", "walk/plain", ms, steps, n,
+                     jump_cuda.bound_ms(n, steps, 2)))
+    if verbose:
+        print(f"lanes: {n}, rounds: {ROUNDS}", flush=True)
+        for row in rows:
+            print(f"{row['label']:26s} {row['us_per_op']:9.2f} us/op   "
+                  f"({row['mlane_ops']:10.1f} Mlane-ops/s)   bound "
+                  f"{row['bound_ms'] * 1e3 / row['rounds']:8.2f} us/op "
+                  f"({row['bound_by']}); {row['ms']:.3f} ms/launch",
+                  flush=True)
+        for op in FIELD_OPS:
+            c = common.kernel_sass(
+                counts, f"kt_field_chainILi{FIELD_OPS.index(op)}EE")
+            static = ", ".join(f"{m} {sass.count_class(c, m)}"
+                               for m in SASS_CLASSES)
+            print(f"  kt_field_chain<{op}>: "
+                  f"{common.occupancy('field_chain', op)}; static SASS "
+                  f"{static}; source count per round "
+                  f"{probe_cuda.field_counts(op)}", flush=True)
+    return rows
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    common.header("pkbench", ["kt_field_chain", "kt_inv_chain<0, 128>"])
+    run(int(argv[0]) if argv else LANES_LOG2)
+
+
+if __name__ == "__main__":
+    main()

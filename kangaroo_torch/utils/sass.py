@@ -1,0 +1,123 @@
+"""What nvcc made of a kernel: ptxas reports and SASS listings.
+
+`ptxas_report` reads the `-Xptxas -v` log that `utils.build` keeps
+beside each library (registers, spills, stack and shared memory per
+kernel); `sass_functions` splits `cuobjdump -sass` of a library into its
+kernels, so that a probe can count the instructions it claims to
+measure and a build can hash a kernel's code.  Both run only where the
+CUDA toolkit is (the card's machine).
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import re
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PROPS = re.compile(r"Function properties for (\w+)")
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+_FUNC = re.compile(r"^\s*Function : (\w+)\s*$")
+_INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """Mangled kernel name -> {regs, smem, stack, spill_stores,
+    spill_loads} from an nvcc -Xptxas -v log."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line) or _PROPS.search(line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = _STACK.search(line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = _REGS.search(line)
+        if m:
+            m2 = _SMEM.search(line)
+            cur.update(regs=int(m.group(1)),
+                       smem=int(m2.group(1)) if m2 else 0)
+    return out
+
+
+_NOISE = re.compile(r"<unnamed>::|\(anonymous namespace\)::|\((?:int|bool)\)")
+
+
+def demangle(names: List[str]) -> Dict[str, str]:
+    """Mangled -> readable C++ names (cu++filt or c++filt), without the
+    anonymous namespace and the casts of template arguments, e.g.
+    `void kt_raw_chain<0, 4>(void *, unsigned long, int)`; a name no tool
+    reads stays as it is.  For display: match kernels by mangled name."""
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    r = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                       text=True, timeout=60, check=True)
+    readable = [_NOISE.sub("", s) for s in r.stdout.splitlines()]
+    return dict(zip(names, readable)) if len(readable) == len(names) else {
+        n: n for n in names}
+
+
+def cuobjdump() -> str:
+    """Path of cuobjdump: on PATH, or beside nvcc (the CUDA toolkit's
+    bin/)."""
+    nvcc = shutil.which("nvcc")
+    for cand in (shutil.which("cuobjdump"),
+                 nvcc and str(Path(nvcc).with_name("cuobjdump"))):
+        if cand and Path(cand).exists():
+            return cand
+    raise RuntimeError("cuobjdump not found beside nvcc")
+
+
+def sass_functions(lib: Path) -> Dict[str, List[str]]:
+    """Mangled kernel name -> its SASS instruction lines (cuobjdump
+    -sass of the library)."""
+    r = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300, check=True)
+    out: Dict[str, List[str]] = {}
+    cur = None
+    for line in r.stdout.splitlines():
+        m = _FUNC.match(line)
+        if m:
+            cur = out.setdefault(m.group(1), [])
+        elif cur is not None and _INSN.search(line):
+            cur.append(line.strip())
+    return out
+
+
+def sass_hash(lines: List[str]) -> str:
+    """sha256 (first 16 hex digits) of a kernel's SASS listing."""
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+
+
+def opcode_counts(lines: List[str]) -> Dict[str, int]:
+    """Instruction mnemonic (with its modifiers, e.g. IMAD.WIDE.U32) ->
+    static count in a SASS listing."""
+    return collections.Counter(m.group(1) for m in map(_INSN.search, lines)
+                               if m)
+
+
+def count_class(counts: Dict[str, int], mnemonic: str) -> int:
+    """Static count of an instruction class: the mnemonic and its
+    modifiers (IMAD counts IMAD and IMAD.U32 but neither the IMAD.MOV
+    moves nor IMAD.WIDE, which is its own class)."""
+    total = 0
+    for op, k in counts.items():
+        if op == mnemonic or op.startswith(mnemonic + "."):
+            if mnemonic == "IMAD" and op.split(".")[1:2] in (["MOV"],
+                                                               ["WIDE"]):
+                continue
+            total += k
+    return total

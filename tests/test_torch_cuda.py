@@ -1,4 +1,5 @@
-"""The CUDA walk kernel against the plain walk, on the card.
+"""The CUDA walk kernel and the probe kernels against their plain
+versions, on the card.
 
 Needs a CUDA card (the kernel has no CPU mode) and skips without one.
 Imports only the port, so it runs on a machine without JAX:
@@ -7,16 +8,18 @@ Imports only the port, so it runs on a machine without JAX:
 
 chip_smoke.py runs the same comparison at the main path's shape (2^22
 lanes, 256 blocks), the plain walk on 64 lanes of every block, for the
-plain and the symmetry kernel.
+plain and the symmetry kernel, and the probe kernels at small shapes.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from kangaroo_torch.core import curve, herd  # noqa: E402
 from kangaroo_torch.core.jumptable import create_jump_table  # noqa: E402
-from kangaroo_torch.ops import field, jump_cuda, jump_ref  # noqa: E402
+from kangaroo_torch.ops import (  # noqa: E402
+    field, jump_cuda, jump_ref, probe_cuda, probe_ref)
 from kangaroo_torch.utils.rng import MT19937  # noqa: E402
 
 NAMES = ("px", "py", "d", "count", "dpx", "dpd", "step")
@@ -110,3 +113,96 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     with pytest.raises(ValueError, match="symclass"):
         jump_cuda.jump_steps_with_dp(z16, z16, z8, t16, t16, t8, m,
                                      symmetry=True, symclass=z8[0, :64])
+
+
+def _limbs(rs, rows, n, dev):
+    return torch.from_numpy(
+        rs.randint(0, 1 << 16, (rows, n)).astype(np.int32)).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", probe_ref.FIELD_OPS)
+def test_field_chain_matches_plain_on_card(card, op):
+    """P1 on 2 blocks x 3 rounds (fe_inv 1 round): canonical equal."""
+    rs = np.random.RandomState(1)
+    n = 2 * (jump_cuda.LANE_QUANTUM if op == "step" else probe_cuda.THREADS)
+    rounds = 1 if op == "inv" else 3
+    a, b = _limbs(rs, 16, n, card), _limbs(rs, 16, n, card)
+    jx, jy = _limbs(rs, 16, 32, card), _limbs(rs, 16, 32, card)
+    key = probe_cuda.kernel_key("field_chain", op)
+    launches = probe_cuda.LAUNCHES[key]
+    got = probe_cuda.field_chain(op, a.clone(), b, rounds, jx, jy)
+    want = probe_ref.field_chain(op, a, b, rounds, jx, jy)
+    torch.cuda.synchronize()
+    assert probe_cuda.LAUNCHES[key] == launches + 1
+    assert torch.equal(field.canonicalize(got), field.canonicalize(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,ilp,smem", [
+    (op, ilp, 0) for op in probe_ref.RAW_OPS
+    for ilp in probe_cuda.RAW_ILPS[op]] + [("layout", 1, 100 * 1024)])
+def test_raw_chain_matches_plain_on_card(card, op, ilp, smem):
+    """P2 on 2 blocks x 64 iterations: integers bit-equal, f32 within
+    rtol 1e-5 (the fused multiply-add's plain version rounds twice)."""
+    rs = np.random.RandomState(2)
+    n = 2 * probe_cuda.THREADS * ilp
+    if op in probe_ref.F32_OPS:
+        x = torch.from_numpy(rs.uniform(1, 2, n).astype(np.float32))
+    else:
+        x = torch.from_numpy(rs.randint(1, 1 << 16, n).astype(np.int32))
+    x = x.to(card)
+    got = probe_cuda.raw_chain(op, x.clone(), 64, ilp, smem)
+    want = probe_ref.raw_chain(op, x, 64)
+    torch.cuda.synchronize()
+    if op in probe_ref.F32_OPS:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", probe_ref.DELTA_VARIANTS)
+def test_delta_walk_matches_plain_on_card(card, variant):
+    """P3 on 2 blocks x 4 steps, dp 3 and 2 slots (lanes overflow)."""
+    n = 2 * jump_cuda.LANE_QUANTUM
+    rs = np.random.RandomState(3)
+    state = [_limbs(rs, r, n, card) for r in (16, 16, 8)]
+    tabs = [torch.from_numpy(a.astype("int32")).to(card)
+            for a in create_jump_table(64).as_arrays()]
+    masks = jump_ref.dp_limb_masks(3, card)
+    got = probe_cuda.delta_walk(variant, *[t.clone() for t in state], *tabs,
+                                masks, 4, 2)
+    want = probe_ref.delta_walk(variant, *state, *tabs, masks, 4, 2)
+    torch.cuda.synchronize()
+    for name, a, b in zip(NAMES, got, want):
+        if name == "py":
+            a, b = field.canonicalize(a), field.canonicalize(b)
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,group", [
+    (v, g) for v in probe_ref.INV_VARIANTS for g in probe_cuda.INV_GROUPS[v]])
+def test_inv_chain_matches_plain_on_card(card, variant, group):
+    """P4 on 2 blocks of its G x 2 iterations: bit-equal (canonical)."""
+    rs = np.random.RandomState(4)
+    x = _limbs(rs, 16, 2 * probe_cuda.THREADS * group, card) | 1
+    got = probe_cuda.inv_chain(variant, x.clone(), 2, group)
+    want = probe_ref.inv_chain(variant, x, 2, group)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
+    z = torch.zeros((16, 200), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError, match="multiple"):
+        probe_cuda.field_chain("mul", z, z, 1)
+    with pytest.raises(ValueError, match="table"):
+        probe_cuda.field_chain("gather", z[:, :128].contiguous(),
+                               z[:, :128].contiguous(), 1)
+    with pytest.raises(ValueError, match="ILP"):
+        probe_cuda.raw_chain("u32_add", z[0].contiguous(), 1, ilp=3)
+    with pytest.raises(ValueError, match="G = 100"):
+        probe_cuda.inv_chain("cur", z, 1, group=100)

@@ -2,7 +2,8 @@
 
 csrc/field.cuh and csrc/walk.cuh are the code nvcc compiles into the
 CUDA walk kernel; csrc/host_shim.cpp exposes them through a plain C
-interface, so here g++ builds the very same code for the CPU.  The field
+interface, so here g++ builds the very same code for the CPU
+(ops/host_kernel.py builds and binds it).  The field
 ops are held against Python ints, and the kernel body, run thread by
 thread on the host at the kernel's real geometry, against the JAX
 package's reference walk and the port's plain walk on the same inputs
@@ -10,9 +11,7 @@ package's reference walk and the port's plain walk on the same inputs
 symmetry mode (there also symclass, and py canonical).
 """
 
-import ctypes
 import shutil
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -29,35 +28,17 @@ from kangaroo_tpu.ops import jump_ref as jref  # noqa: E402
 from kangaroo_tpu.utils.rng import MT19937  # noqa: E402
 from kangaroo_torch import interop  # noqa: E402
 from kangaroo_torch.constants import P  # noqa: E402
-from kangaroo_torch.ops import field, jump_cuda, jump_ref  # noqa: E402
-from kangaroo_torch.utils.build import build_shared  # noqa: E402
+from kangaroo_torch.ops import (  # noqa: E402
+    field, host_kernel, jump_cuda, jump_ref)
 
-CSRC = Path(jump_cuda.__file__).resolve().parents[1] / "csrc"
 RS = np.random.RandomState(0xC0DE)
-V = ctypes.c_void_p
 
 
 @pytest.fixture(scope="module")
 def lib():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: cannot build csrc/ for the host")
-    path = build_shared(
-        "libkangaroo_host_shim.so", [CSRC / "host_shim.cpp"],
-        ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"],
-        deps=[CSRC / "field.cuh", CSRC / "walk.cuh"], timeout=300,
-    )
-    so = ctypes.CDLL(str(path))
-    for name in ("kt_fe_add_n", "kt_fe_sub_n", "kt_fe_mul_n"):
-        getattr(so, name).argtypes = [V, V, V, ctypes.c_int]
-    for name in ("kt_fe_sqr_n", "kt_fe_inv_n", "kt_add_u128_n"):
-        getattr(so, name).argtypes = [V, V, ctypes.c_int]
-    so.kt_fe_canon_n.argtypes = [V, ctypes.c_int]
-    for name in ("kt_fe_is_high_n", "kt_fe_neg_n"):
-        getattr(so, name).argtypes = [V, V, ctypes.c_int]
-    so.kt_neg_u128_n.argtypes = [V, ctypes.c_int]
-    so.kt_lane_quantum.restype = ctypes.c_int
-    so.kt_walk_host.argtypes = [V] * 7 + [ctypes.c_int] * 3 + [V] * 5
-    return so
+    return host_kernel.load()
 
 
 def words(vals, nw=8):

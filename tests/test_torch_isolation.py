@@ -1,7 +1,9 @@
-"""kangaroo_torch and chip_smoke.py import neither JAX nor kangaroo_tpu.
+"""kangaroo_torch and chip_smoke.py import neither JAX nor kangaroo_tpu,
+nor the TPU probe scripts of scripts/.
 
-A fresh interpreter imports every module of the port and the smoke
-script, then checks sys.modules.
+A fresh interpreter imports every module of the port (the probe entry
+points included: importing one runs nothing and needs no card) and the
+smoke script, then checks sys.modules.
 """
 
 import os
@@ -22,8 +24,12 @@ names = [m.name for m in pkgutil.walk_packages(kangaroo_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+# the TPU probe scripts of scripts/, by package and by bare name
+TPU_SCRIPTS = ("scripts", "pkbench", "probe_ops", "pkdelta", "pkinv",
+               "layout_probe")
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "kangaroo_tpu")))
+             if m == "jax" or m.startswith(("jax.", "jaxlib", "kangaroo_tpu"))
+             or m.split(".")[0] in TPU_SCRIPTS)
 print(len(names), "modules;", "leaked:", bad)
 sys.exit(1 if bad or len(names) < 15 else 0)
 """

@@ -5,7 +5,7 @@ exactly like the JAX solver (`backend="xla"`, one device) after a fixed
 number of ticks: the same herd, the same walk, the same pipelined drain
 (resets one tick late) and the same dead-lane redraws, in plain and in
 symmetry mode.  The CLI solves the in32 fixture on the CPU, with and
-without -sym.
+without -sym, and runs -check on the CPU.
 """
 
 import os
@@ -148,9 +148,18 @@ def test_cli_solves_in32_sym_on_cpu():
 
 
 def test_cli_rejects_flags_not_yet_ported():
-    for flag in ("-wi", "-w", "-check", "-s"):
+    for flag in ("-wi", "-w", "-wcheck", "-s"):
         r = _cli(flag, "x", IN32, timeout=120)
         assert r.returncode != 0
         assert "not yet ported" in r.stdout
     r = _cli("-v", timeout=120)
     assert r.returncode == 0 and "torch" in r.stdout
+
+
+def test_cli_check_on_cpu():
+    """-check on the CPU: the plain ops, k*G, the walk, the volume oracle
+    (plain ops and field.cuh's g++ build) and the walk body's lockstep."""
+    r = _cli("-device", "cpu", "-check")
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "Check: ALL OK" in r.stdout
+    assert "Check: kernel lockstep [cpu, sym=True] OK" in r.stdout
