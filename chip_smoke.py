@@ -13,13 +13,17 @@ Phases:
   2. build: nvcc builds the walk kernels (plain and symmetry) and the
      probe kernels from csrc/, the two libraries at once (set-up time),
      with ptxas's register and spill report and a hash of each walk
-     kernel's SASS (cuobjdump);
+     kernel's SASS (cuobjdump); for each walk kernel its registers,
+     spills, resident blocks per SM (kt_walk_occupancy) and warps per
+     scheduler at 2^22 lanes -- it fails unless both run without spill
+     and fit a 2^22-lane grid in one wave;
   3. plain kernel vs plain walk at the main path's shape: the kernel
-     walks a 2^22-lane herd (256 blocks) once with slot overflow (dp 6,
-     2 slots, 256 steps) and once as the solver runs it (dp 14, 6 slots,
-     512 steps); the plain walk runs the same window on 64 lanes of
-     every block (2^14 lanes, corners of each block's thread x group
-     grid included), and the kernel once more on those 2^14 lanes alone.
+     walks a 2^22-lane herd (512 blocks of 128 threads x 64 lanes) once
+     with slot overflow (dp 6, 2 slots, 256 steps) and once as the
+     solver runs it (dp 14, 6 slots, 512 steps); the plain walk runs the
+     same window on 32 lanes of every block (2^14 lanes, corners of each
+     block's thread x group grid included), and the kernel once more on
+     those 2^14 lanes alone.
      The walk is exact per lane, so px, d, count and every DP slot must
      be bit-equal and py equal mod p (tolerance 0: integer arithmetic);
   4. full-width plain walk: 2^22 lanes x 1024 steps timed with CUDA
@@ -36,7 +40,8 @@ Phases:
      auto DP, through the symmetry kernel only, then the plain in64
      solve with the same seed for its jump count;
   7. probes: each probe kernel (P1 field chains, P2 raw chains, P3 walk
-     variants, P4 inversion chains) launched as its entry point
+     variants and base at each G, P4 inversion chains) launched as its
+     entry point
      launches it (inputs, lanes, geometry, rounds; P1's fe_inv and P2
      at fewer rounds) against its plain version on lanes of every block
      -- whole thread groups where a thread owns G lanes -- (tolerance
@@ -60,7 +65,7 @@ N_FULL = 1 << 22
 NB_FULL = 1024
 SLOTS_FULL = 6
 DP_FULL = 14
-PER_BLOCK = 64  # lanes of each block the plain walk checks
+PER_BLOCK = 32  # lanes of each block the plain walk checks
 RANGE_POWER = 64
 SEED = 0x5EED
 IN56_KEY = 0x9FD2E30C451A6B
@@ -123,6 +128,25 @@ def phase_build():
         print(f"[2 build] SASS {names[mangled]}: {len(funcs[mangled])} "
               f"instructions, sha256 {sass.sass_hash(funcs[mangled])}",
               flush=True)
+    walk_rep = sass.ptxas_report(log)
+    for label, tag in (("plain", "ILb0E"), ("symmetry", "ILb1E")):
+        occ = jump_cuda.occupancy(N_FULL, label == "symmetry")
+        r = next(v for k, v in walk_rep.items() if tag in k)
+        spill = r.get("spill_stores", 0) + r.get("spill_loads", 0)
+        print(f"[2 build] walk kernel, {label}: {occ['regs']} registers, "
+              f"spill stores/loads {r.get('spill_stores')}/"
+              f"{r.get('spill_loads')} B, {occ['local_bytes']} B local "
+              f"(prefix products {jump_cuda.GROUP} x 32 B), "
+              f"{occ['blocks_per_sm']} resident blocks/SM "
+              f"(kt_walk_occupancy); 2^22 lanes = {occ['blocks']} "
+              f"blocks of {jump_cuda.THREADS} threads x {jump_cuda.GROUP} "
+              f"lanes on {occ['sms']} SMs: "
+              f"{'one wave' if occ['one_wave'] else 'more than one wave'}, "
+              f"{occ['warps_per_scheduler']:.2f} warps per scheduler",
+              flush=True)
+        if spill or not occ["one_wave"]:
+            raise SystemExit(f"walk kernel ({label}) spills or does not fit "
+                             f"2^22 lanes in one wave")
     rep = sass.ptxas_report((BUILD_DIR / f"{probe_lib.name}.log").read_text())
     pnames = sass.demangle(sorted(rep))
     spills = [pnames[k] for k, r in rep.items()
@@ -271,9 +295,11 @@ def phase_full(state, herd_s, dev, plain_ms=None):
           + (f" (plain kernel, phase 4: {plain_ms:.1f} ms/launch, "
              f"{jumps / plain_ms * 1e3 / 1e9:.3f} G jumps/s)" if sym
              else "")
-          + f"; bound {bound:.1f} ms ({by}: {jump_cuda.imad_per_jump():.1f} "
-          f"IMAD/jump at {jump_cuda.IMAD_PEAK:.4g}/s, derived peak); this "
-          f"design's traffic floor "
+          + f"; bound {bound:.1f} ms ({by}: "
+          f"{jump_cuda.imad_per_jump(N_FULL):.1f} IMAD/jump, one inversion "
+          f"a step for the herd, at {jump_cuda.IMAD_PEAK:.4g}/s, derived "
+          f"peak); this design's {jump_cuda.imad_per_jump():.1f} IMAD/jump "
+          f"at G {jump_cuda.GROUP} and traffic floor "
           f"{jump_cuda.design_traffic_ms(N_FULL, NB_FULL, sym):.1f} ms "
           f"({state_b} B per lane and step at "
           f"{jump_cuda.HBM_RATE:.3g} B/s); herd creation {herd_s:.1f} s; "
@@ -519,24 +545,25 @@ def phase_probe_compare(dev):
     n = 1 << pkdelta.HERD_LOG2
     state, tabs = pkdelta.inputs(n, dev)
     masks = jump_ref.dp_limb_masks(pkdelta.DP_SIZE, dev)
-    shape = (f"{n} lanes x {pkdelta.NB_RUN} steps, dp {pkdelta.DP_SIZE}, "
-             f"{pkdelta.SLOTS} slots")
-    for v in probe_ref.DELTA_VARIANTS:
+    for v, g in ((v, g) for v in probe_ref.DELTA_VARIANTS
+                 for g in probe_cuda.DELTA_GROUPS[v]):
+        shape = (f"{n} lanes x {pkdelta.NB_RUN} steps, dp {pkdelta.DP_SIZE}, "
+                 f"{pkdelta.SLOTS} slots, G {g}")
         k = probe_cuda.delta_walk(v, *[t.clone() for t in state], *tabs,
-                                  masks, pkdelta.NB_RUN, pkdelta.SLOTS)
+                                  masks, pkdelta.NB_RUN, pkdelta.SLOTS, g)
         hits = torch.nonzero(k[3]).flatten().cpu().numpy()
         idx = torch.from_numpy(
-            _group_sample(n // (thr * grp), grp, rs, hits)).to(dev)
+            _group_sample(n // (thr * g), g, rs, hits)).to(dev)
         sub = [t[:, idx] for t in state]
         p, p_ms = cuda_ms(lambda: probe_ref.delta_walk(
             v, *sub, *tabs, masks, pkdelta.NB_RUN, pkdelta.SLOTS))
         errs = [_max_err(x[..., idx], y, canon=i == 1)
                 for i, (x, y) in enumerate(zip(k, p))]
         if max(errs) or (int(p[3].sum()) == 0) != (v == "no_dp"):
-            raise SystemExit(f"walk variant {v} disagrees with its plain "
-                             f"version: {errs}, {int(p[3].sum())} DPs on "
-                             f"the plain lanes")
-        res[probe_cuda.kernel_key("delta", v)] = (
+            raise SystemExit(f"walk variant {v} at G {g} disagrees with its "
+                             f"plain version: {errs}, {int(p[3].sum())} DPs "
+                             f"on the plain lanes")
+        res[probe_cuda.kernel_key("delta", v, g)] = (
             max(errs), p_ms, shape,
             f"{idx.numel()} lanes (every lane of one thread per block; "
             f"{len(hits)} lanes of the launch hit DPs, "

@@ -166,12 +166,6 @@ KT_HD void fe_sqr(uint32_t r[8], const uint32_t a[8]) {
     fe_reduce512(r, t);
 }
 
-// r = a^(2^n)
-KT_HD void fe_sqr_n(uint32_t r[8], const uint32_t a[8], int n) {
-    fe_sqr(r, a);
-    for (int i = 1; i < n; ++i) fe_sqr(r, r);
-}
-
 // Canonical form: subtract p once when r >= p (r + K1C carries out).
 KT_HD void fe_canon(uint32_t r[8]) {
     uint32_t s[8];
@@ -189,43 +183,162 @@ KT_HD void fe_canon(uint32_t r[8]) {
     if (c) fe_copy(r, s);
 }
 
-// r = a^(p-2) = a^-1 mod p (Fermat; inv(0) = 0), canonical.  The
-// addition chain of libsecp256k1's field inverse: 255 squarings and
-// 15 multiplications, a fixed sequence with no data-dependent control.
+// ---- inversion: safegcd (Bernstein-Yang), constant time ----
+//
+// The counterpart of kangaroo_tpu/ops/field.py:806 modinv, in the form
+// of libsecp256k1's modinv32: values as 9 signed 30-bit limbs (S30),
+// 20 batches of 30 half-delta divsteps, each batch's 2x2 transition
+// matrix of int32 entries applied to (f, g) and to the Bezout
+// coefficients (d, e) mod p.  600 divsteps cover the 590 that any
+// 256-bit input needs.  Every step is masks and adds, with no
+// data-dependent branch, so the lanes of a warp never diverge.  The
+// coefficients are kept exact mod p by adding a multiple of p that
+// clears their low 30 bits before each shift (p^-1 mod 2^30), so no
+// 2^-600 scale is left to undo (the TPU's modinv multiplies by one).
+
+struct S30 {
+    int32_t v[9];  // value = sum v[i] 2^(30 i); limbs in (-2^30, 2^30)
+};
+
+constexpr int32_t M30 = 0x3FFFFFFF;
+constexpr int INV_BATCHES = 20;      // x 30 divsteps >= 590
+constexpr uint32_t P_INV30 = 0x2DDACACFu;  // p^-1 mod 2^30
+// p = -977 - 4 * 2^30 + 65536 * 2^240: limbs 0, 1 and 8, the rest zero
+KT_HD int32_t p30(int i) { return i == 0 ? -977 : i == 1 ? -4 : i == 8 ? 65536 : 0; }
+
+// 30 divsteps on the low words of f (odd) and g from zeta = -(delta +
+// 1/2); returns the new zeta and the transition matrix t = (u, v, q,
+// r), scaled by 2^30: [f', g'] 2^30 = [[u, v], [q, r]] [f, g].
+KT_HD int32_t divsteps_30(int32_t zeta, uint32_t f, uint32_t g,
+                          int32_t t[4]) {
+    uint32_t u = 1, v = 0, q = 0, r = 1;
+    for (int i = 0; i < 30; ++i) {
+        const uint32_t neg = (uint32_t)(zeta >> 31);  // zeta < 0
+        const uint32_t odd = 0u - (g & 1u);
+        // g += +-f (and q, r with u, v) where g is odd: -f when zeta < 0
+        g += ((f ^ neg) - neg) & odd;
+        q += ((u ^ neg) - neg) & odd;
+        r += ((v ^ neg) - neg) & odd;
+        const uint32_t swap = neg & odd;
+        zeta = (zeta ^ (int32_t)swap) - 1;  // -zeta - 2 on a swap
+        f += g & swap;  // with g = g - f: f <- the old g
+        u += q & swap;
+        v += r & swap;
+        g >>= 1;
+        u <<= 1;
+        v <<= 1;
+    }
+    t[0] = (int32_t)u;
+    t[1] = (int32_t)v;
+    t[2] = (int32_t)q;
+    t[3] = (int32_t)r;
+    return zeta;
+}
+
+// (d, e) <- t [d, e] / 2^30 mod p, with d, e in (-2p, p) kept there.
+KT_HD void update_de_30(S30& d, S30& e, const int32_t t[4]) {
+    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+    const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+    // md, me: multiples of p to add, start from [u, q] where d < 0 and
+    // [v, r] where e < 0, then corrected so the low 30 bits clear
+    int32_t md = (u & sd) + (v & se);
+    int32_t me = (q & sd) + (r & se);
+    int64_t cd = (int64_t)u * d.v[0] + (int64_t)v * e.v[0];
+    int64_t ce = (int64_t)q * d.v[0] + (int64_t)r * e.v[0];
+    md -= (int32_t)((P_INV30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)M30);
+    me -= (int32_t)((P_INV30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)M30);
+    cd += (int64_t)p30(0) * md;
+    ce += (int64_t)p30(0) * me;
+    cd >>= 30;  // the low 30 bits are zero
+    ce >>= 30;
+    for (int i = 1; i < 9; ++i) {
+        const int32_t di = d.v[i], ei = e.v[i];
+        cd += (int64_t)u * di + (int64_t)v * ei;
+        ce += (int64_t)q * di + (int64_t)r * ei;
+        if (p30(i)) {
+            cd += (int64_t)p30(i) * md;
+            ce += (int64_t)p30(i) * me;
+        }
+        d.v[i - 1] = (int32_t)cd & M30;
+        cd >>= 30;
+        e.v[i - 1] = (int32_t)ce & M30;
+        ce >>= 30;
+    }
+    d.v[8] = (int32_t)cd;
+    e.v[8] = (int32_t)ce;
+}
+
+// (f, g) <- t [f, g] / 2^30 (exact: the divsteps cleared 30 low bits).
+KT_HD void update_fg_30(S30& f, S30& g, const int32_t t[4]) {
+    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+    int64_t cf = (int64_t)u * f.v[0] + (int64_t)v * g.v[0];
+    int64_t cg = (int64_t)q * f.v[0] + (int64_t)r * g.v[0];
+    cf >>= 30;
+    cg >>= 30;
+    for (int i = 1; i < 9; ++i) {
+        const int32_t fi = f.v[i], gi = g.v[i];
+        cf += (int64_t)u * fi + (int64_t)v * gi;
+        cg += (int64_t)q * fi + (int64_t)r * gi;
+        f.v[i - 1] = (int32_t)cf & M30;
+        cf >>= 30;
+        g.v[i - 1] = (int32_t)cg & M30;
+        cg >>= 30;
+    }
+    f.v[8] = (int32_t)cf;
+    g.v[8] = (int32_t)cg;
+}
+
+// r <- r when sign >= 0, else -r, brought from (-2p, p) into [0, p):
+// add p where negative, negate, propagate, add p where still negative,
+// propagate (masks only).
+KT_HD void normalize_30(S30& r, int32_t sign) {
+    int32_t m = r.v[8] >> 31;
+    for (int i = 0; i < 9; ++i) r.v[i] += p30(i) & m;
+    const int32_t neg = sign >> 31;
+    for (int i = 0; i < 9; ++i) r.v[i] = (r.v[i] ^ neg) - neg;
+    for (int i = 0; i < 8; ++i) {
+        r.v[i + 1] += r.v[i] >> 30;
+        r.v[i] &= M30;
+    }
+    m = r.v[8] >> 31;
+    for (int i = 0; i < 9; ++i) r.v[i] += p30(i) & m;
+    for (int i = 0; i < 8; ++i) {
+        r.v[i + 1] += r.v[i] >> 30;
+        r.v[i] &= M30;
+    }
+}
+
+// r = a^-1 mod p (inv(0) = 0), canonical, for any a < 2^256.
 KT_HD void fe_inv(uint32_t r[8], const uint32_t a[8]) {
-    uint32_t x2[8], x3[8], x6[8], x9[8], x11[8], x22[8], x44[8], x88[8];
-    uint32_t t[8];
-    fe_sqr(x2, a);
-    fe_mul(x2, x2, a);            // a^(2^2-1)
-    fe_sqr(x3, x2);
-    fe_mul(x3, x3, a);            // a^(2^3-1)
-    fe_sqr_n(x6, x3, 3);
-    fe_mul(x6, x6, x3);
-    fe_sqr_n(x9, x6, 3);
-    fe_mul(x9, x9, x3);
-    fe_sqr_n(x11, x9, 2);
-    fe_mul(x11, x11, x2);
-    fe_sqr_n(x22, x11, 11);
-    fe_mul(x22, x22, x11);
-    fe_sqr_n(x44, x22, 22);
-    fe_mul(x44, x44, x22);
-    fe_sqr_n(x88, x44, 44);
-    fe_mul(x88, x88, x44);
-    fe_sqr_n(t, x88, 88);
-    fe_mul(t, t, x88);            // x176
-    fe_sqr_n(t, t, 44);
-    fe_mul(t, t, x44);            // x220
-    fe_sqr_n(t, t, 3);
-    fe_mul(t, t, x3);             // x223
-    fe_sqr_n(t, t, 23);
-    fe_mul(t, t, x22);
-    fe_sqr_n(t, t, 5);
-    fe_mul(t, t, a);
-    fe_sqr_n(t, t, 3);
-    fe_mul(t, t, x2);
-    fe_sqr_n(t, t, 2);
-    fe_mul(r, t, a);
-    fe_canon(r);
+    uint32_t c[8];
+    fe_copy(c, a);
+    fe_canon(c);  // < 2^256 needs one subtraction of p at most
+    S30 f, g, d, e;
+    g.v[0] = (int32_t)(c[0] & (uint32_t)M30);
+    for (int i = 1; i < 8; ++i)  // bits 30i.. = word i-1 from bit 32-2i
+        g.v[i] = (int32_t)(((c[i - 1] >> (32 - 2 * i)) | (c[i] << (2 * i)))
+                           & (uint32_t)M30);
+    g.v[8] = (int32_t)(c[7] >> 16);
+    for (int i = 0; i < 9; ++i) {
+        f.v[i] = p30(i);
+        d.v[i] = 0;
+        e.v[i] = i == 0;
+    }
+    int32_t zeta = -1;  // delta = 1/2
+#if defined(__CUDA_ARCH__)
+#pragma unroll 1
+#endif
+    for (int b = 0; b < INV_BATCHES; ++b) {
+        int32_t t[4];
+        zeta = divsteps_30(zeta, (uint32_t)f.v[0], (uint32_t)g.v[0], t);
+        update_de_30(d, e, t);
+        update_fg_30(f, g, t);
+    }
+    // g = 0 and f = +-1 (f = p, d = 0 for a = 0): d is +-a^-1
+    normalize_30(d, f.v[8]);
+    for (int w = 0; w < 8; ++w)  // bits 32w.. = limb w from bit 2w
+        r[w] = ((uint32_t)d.v[w] >> (2 * w))
+             | ((uint32_t)d.v[w + 1] << (30 - 2 * w));
 }
 
 // d = (d + e) mod 2^128 on 4-word device distances.

@@ -53,29 +53,29 @@ void kt_neg_u128_n(uint32_t* d, int n) {
     for (int i = 0; i < n; ++i) kt::neg_u128(d + 4 * i);
 }
 
-// The kernel's launch, run thread by thread on the host (same argument
-// layout as kt_jump_steps in jump_kernel.cu; symmetry mode when
-// symclass is not null).  Returns 0, or 1 for a lane count that is not
-// a multiple of the lane quantum.
+// The kernel's launch, run thread by thread on the host: same arguments
+// as kt_jump_steps in jump_kernel.cu (symmetry mode when symclass is not
+// null; scratch of SCRATCH_ROWS x n words), no stream.  Returns 0, or 1
+// for a lane count that is not a multiple of LANES.
 int kt_walk_host(int32_t* px, int32_t* py, int32_t* d, const int32_t* jx,
                  const int32_t* jy, const int32_t* jd, const int32_t* masks,
                  int n, int nb_run, int slots, int32_t* count, int32_t* dpx,
-                 int32_t* dpd, int32_t* dstep, int32_t* symclass) {
-    if (n <= 0 || n % kt::LANES != 0) return 1;
+                 int32_t* dpd, int32_t* dstep, int32_t* symclass,
+                 uint32_t* scratch) {
+    if (n <= 0 || n % kt::LANES != 0 || !scratch) return 1;
     kt::JumpTable tb;
     for (int k = 0; k < 8 * kt::NB_JUMP; ++k)
         kt::pack_table_word(&tb, jx, jy, jd, k);
     kt::WalkArgs a{px, py, d, masks, (size_t)n, nb_run, slots,
-                   count, dpx, dpd, dstep, symclass};
+                   count, dpx, dpd, dstep, symclass, scratch};
     std::vector<uint32_t> acc(8 * kt::GROUP);
-    const int blocks = n / kt::LANES;
-    auto* scratch = reinterpret_cast<uint32_t (*)[8]>(acc.data());
-    for (int b = 0; b < blocks; ++b)
+    auto* sc = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+    for (int b = 0; b < n / kt::LANES; ++b)
         for (int t = 0; t < kt::THREADS; ++t) {
             if (symclass)
-                kt::walk_thread<true>(a, tb, (size_t)b, t, scratch);
+                kt::walk_thread<true>(a, tb, (size_t)b, t, sc);
             else
-                kt::walk_thread<false>(a, tb, (size_t)b, t, scratch);
+                kt::walk_thread<false>(a, tb, (size_t)b, t, sc);
         }
     return 0;
 }
@@ -164,25 +164,35 @@ int kt_raw_chain_host(int op, int ilp, void* x, int n_elems, int inner) {
     return kt::with_raw_chain(op, ilp, h) == 0 ? 0 : 1;
 }
 
-int kt_delta_host(int variant, int32_t* px, int32_t* py, int32_t* d,
-                  const int32_t* jx, const int32_t* jy, const int32_t* jd,
-                  const int32_t* masks, int n, int nb_run, int slots,
-                  int32_t* count, int32_t* dpx, int32_t* dpd,
-                  int32_t* dstep) {
-    if (n <= 0 || n % kt::LANES != 0) return 1;
+int kt_delta_host(int variant, int group, int32_t* px, int32_t* py,
+                  int32_t* d, const int32_t* jx, const int32_t* jy,
+                  const int32_t* jd, const int32_t* masks, int n, int nb_run,
+                  int slots, int32_t* count, int32_t* dpx, int32_t* dpd,
+                  int32_t* dstep, uint32_t* scratch) {
+    if (!kt::delta_has_group(variant, group) || n <= 0 ||
+        n % (kt::THREADS * group) != 0 || !scratch)
+        return 1;
     kt::JumpTable tb;
     for (int k = 0; k < 8 * kt::NB_JUMP; ++k)
         kt::pack_table_word(&tb, jx, jy, jd, k);
     kt::WalkArgs a{px, py, d, masks, (size_t)n, nb_run, slots,
-                   count, dpx, dpd, dstep, nullptr};
-    std::vector<uint32_t> acc(8 * kt::GROUP);
-    auto* scratch = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+                   count, dpx, dpd, dstep, nullptr, scratch};
     const int rc = kt::with_delta_variant(variant, [&](auto v) {
-        for (int b = 0; b < n / kt::LANES; ++b)
-            for (int t = 0; t < kt::THREADS; ++t)
-                kt::walk_thread<false, decltype(v)>(a, tb, (size_t)b, t,
-                                                    scratch);
-        return 0;
+        using V = decltype(v);
+        auto run = [&](auto gc) {
+            constexpr int G = decltype(gc)::value;
+            std::vector<uint32_t> acc(8 * G);
+            auto* sc = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+            for (int b = 0; b < n / (kt::THREADS * G); ++b)
+                for (int t = 0; t < kt::THREADS; ++t)
+                    kt::walk_thread<false, V, G>(a, tb, (size_t)b, t, sc);
+            return 0;
+        };
+        // each variant at the G it is built for on the card
+        if constexpr (std::is_same<V, kt::Production>::value)
+            return kt::with_group(group, run);
+        else
+            return run(std::integral_constant<int, kt::GROUP>{});
     });
     return rc == 0 ? 0 : 1;
 }

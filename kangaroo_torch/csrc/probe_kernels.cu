@@ -17,10 +17,13 @@
 //                          chains per thread; they differ only in ILP
 //                          and thread count.  Dynamic shared memory
 //                          pads a launch down to a chosen occupancy.
-//   kt_delta_kernel<V>     replaces scripts/pkdelta.py:213 run_variant:
+//   kt_delta_kernel<V, G>  replaces scripts/pkdelta.py:213 run_variant:
 //                          the production walk body (walk.cuh) with one
-//                          component switched by V; V = kt::Production
-//                          is the production kernel's own code.
+//                          component switched by V, at the walk
+//                          kernels' G and launch bounds; V =
+//                          kt::Production at G = GROUP is the production
+//                          kernel's own code, and runs at G = 32 and 128
+//                          as well (the G sweep).
 //   kt_inv_chain<Var, G>   replaces scripts/pkinv.py:129 run: the walk's
 //                          per-thread Montgomery inversion over G lanes
 //                          (cur), without its fe_inv (nodiv), or none.
@@ -38,12 +41,12 @@
 //
 // Built in parts, one nvcc each, all started together and linked into
 // one library (ops/probe_cuda.py), so that the build takes the time of
-// its slowest part: the kernels that hold a Fermat inversion take the
-// longest, and no part holds more than three of them.  KT_PROBE_PART
+// its slowest part: the kernels that hold a whole walk body take the
+// longest.  KT_PROBE_PART
 // selects what a part compiles: 0 the entry points, P1's one-lane
 // chains but fe_inv, and P2; 1 P1's fe_inv; 2 P1's step; 3 and 4 P4
-// below and from G = 128; 5-8 the walk variants of P3 with ids 0-2,
-// 3-4, 5-6, 7-8.  Without KT_PROBE_PART one compile builds everything.
+// below and from G = 128; 5-8 the walk variants of P3 with ids 0-2
+// (base at each G), 3-4, 5-6, 7-8.  Without KT_PROBE_PART one compile builds everything.
 #include <cuda_runtime.h>
 
 #include "probes.cuh"
@@ -68,16 +71,16 @@ FieldFn kt_field_kernel_step(int op);
 RawFn kt_raw_kernel(int op, int ilp);
 InvFn kt_inv_kernel_below128(int var, int group);
 InvFn kt_inv_kernel_from128(int var, int group);
-DeltaFn kt_delta_kernel_0_3(int id);
-DeltaFn kt_delta_kernel_3_5(int id);
-DeltaFn kt_delta_kernel_5_7(int id);
-DeltaFn kt_delta_kernel_7_9(int id);
+DeltaFn kt_delta_kernel_0_3(int id, int group);
+DeltaFn kt_delta_kernel_3_5(int id, int group);
+DeltaFn kt_delta_kernel_5_7(int id, int group);
+DeltaFn kt_delta_kernel_7_9(int id, int group);
 static_assert(kt::DELTA_NVARIANTS == 9, "the P3 parts cover ids 0..8");
 
 namespace {
 
-template <class V>
-__global__ void __launch_bounds__(kt::THREADS)
+template <class V, int G>
+__global__ void __launch_bounds__(kt::THREADS, kt::MIN_BLOCKS)
 kt_delta_kernel(kt::WalkArgs a, const int32_t* __restrict__ jx,
                 const int32_t* __restrict__ jy,
                 const int32_t* __restrict__ jd) {
@@ -85,17 +88,25 @@ kt_delta_kernel(kt::WalkArgs a, const int32_t* __restrict__ jx,
     for (int k = threadIdx.x; k < 8 * kt::NB_JUMP; k += blockDim.x)
         kt::pack_table_word(&tb, jx, jy, jd, k);
     __syncthreads();
-    uint32_t acc[kt::GROUP][8];
-    kt::walk_thread<false, V>(a, tb, blockIdx.x, threadIdx.x, acc);
+    uint32_t acc[G][8];
+    kt::walk_thread<false, V, G>(a, tb, blockIdx.x, threadIdx.x, acc);
 }
 
-// The kernel of variant `id` among ids LO..HI-1 (only those are
-// instantiated), or null.
+// The kernel of variant `id` at G = group among ids LO..HI-1 (only those
+// are instantiated, each at the G of kt::delta_has_group), or null.
 template <int LO, int HI>
-DeltaFn delta_kernel_in(int id) {
+DeltaFn delta_kernel_in(int id, int group) {
     DeltaFn fn = nullptr;
+    if (!kt::delta_has_group(id, group)) return fn;
     kt::with_delta_variant<LO, HI>(id, [&](auto v) {
-        fn = kt_delta_kernel<decltype(v)>;
+        using V = decltype(v);
+        if constexpr (std::is_same<V, kt::Production>::value)
+            kt::with_group(group, [&](auto gc) {
+                fn = kt_delta_kernel<V, decltype(gc)::value>;
+                return 0;
+            });
+        else
+            fn = kt_delta_kernel<V, kt::GROUP>;
         return 0;
     });
     return fn;
@@ -198,11 +209,11 @@ FieldFn field_kernel(int op) {
     return fn;
 }
 
-DeltaFn delta_kernel(int id) {
-    DeltaFn fn = kt_delta_kernel_0_3(id);
-    if (!fn) fn = kt_delta_kernel_3_5(id);
-    if (!fn) fn = kt_delta_kernel_5_7(id);
-    if (!fn) fn = kt_delta_kernel_7_9(id);
+DeltaFn delta_kernel(int id, int group) {
+    DeltaFn fn = kt_delta_kernel_0_3(id, group);
+    if (!fn) fn = kt_delta_kernel_3_5(id, group);
+    if (!fn) fn = kt_delta_kernel_5_7(id, group);
+    if (!fn) fn = kt_delta_kernel_7_9(id, group);
     return fn;
 }
 
@@ -212,12 +223,13 @@ InvFn inv_kernel(int var, int group) {
 }
 
 // The kernel of (family, id, arg): 0 field chain op, 1 raw chain (op,
-// ilp), 2 walk variant, 3 inversion chain (variant, group).
+// ilp), 2 walk variant (variant, group), 3 inversion chain (variant,
+// group).
 const void* probe_kernel(int family, int id, int arg) {
     switch (family) {
         case 0: return (const void*)field_kernel(id);
         case 1: return (const void*)kt_raw_kernel(id, arg);
-        case 2: return (const void*)delta_kernel(id);
+        case 2: return (const void*)delta_kernel(id, arg);
         case 3: return (const void*)inv_kernel(id, arg);
         default: return nullptr;
     }
@@ -264,16 +276,24 @@ InvFn kt_inv_kernel_from128(int var, int group) {
 }
 #endif
 #if KT_PART(5)
-DeltaFn kt_delta_kernel_0_3(int id) { return delta_kernel_in<0, 3>(id); }
+DeltaFn kt_delta_kernel_0_3(int id, int group) {
+    return delta_kernel_in<0, 3>(id, group);
+}
 #endif
 #if KT_PART(6)
-DeltaFn kt_delta_kernel_3_5(int id) { return delta_kernel_in<3, 5>(id); }
+DeltaFn kt_delta_kernel_3_5(int id, int group) {
+    return delta_kernel_in<3, 5>(id, group);
+}
 #endif
 #if KT_PART(7)
-DeltaFn kt_delta_kernel_5_7(int id) { return delta_kernel_in<5, 7>(id); }
+DeltaFn kt_delta_kernel_5_7(int id, int group) {
+    return delta_kernel_in<5, 7>(id, group);
+}
 #endif
 #if KT_PART(8)
-DeltaFn kt_delta_kernel_7_9(int id) { return delta_kernel_in<7, 9>(id); }
+DeltaFn kt_delta_kernel_7_9(int id, int group) {
+    return delta_kernel_in<7, 9>(id, group);
+}
 #endif
 
 #if KT_PART(0)
@@ -282,6 +302,8 @@ extern "C" {
 int kt_probe_threads() { return kt::THREADS; }
 
 int kt_probe_group() { return kt::GROUP; }
+
+int kt_probe_min_blocks() { return kt::MIN_BLOCKS; }
 
 // P1: `rounds` rounds of op on x (16, n) in place with b (16, n); jx,
 // jy (16, 32) tables for the gather and the step (may be null for the
@@ -324,14 +346,16 @@ int kt_raw_chain_launch(int op, int ilp, void* x, int n_elems, int inner,
     return (int)cudaGetLastError();
 }
 
-// P3: one window of walk variant `variant` (kt_jump_steps' arguments,
-// plain mode).
-int kt_delta_launch(int variant, void* px, void* py, void* d, const void* jx,
-                    const void* jy, const void* jd, const void* masks, int n,
-                    int nb_run, int slots, void* count, void* dpx, void* dpd,
-                    void* dstep, void* stream) {
-    const DeltaFn fn = delta_kernel(variant);
-    if (!fn || n <= 0 || n % kt::LANES != 0 || nb_run <= 0 || slots <= 0)
+// P3: one window of walk variant `variant` at G = group lanes per thread
+// (kt_jump_steps' arguments, plain mode; n a multiple of THREADS * G).
+int kt_delta_launch(int variant, int group, void* px, void* py, void* d,
+                    const void* jx, const void* jy, const void* jd,
+                    const void* masks, int n, int nb_run, int slots,
+                    void* count, void* dpx, void* dpd, void* dstep,
+                    void* scratch, void* stream) {
+    const DeltaFn fn = delta_kernel(variant, group);
+    if (!fn || n <= 0 || n % (kt::THREADS * group) != 0 || nb_run <= 0 ||
+        slots <= 0 || !scratch)
         return (int)cudaErrorInvalidValue;
     kt::WalkArgs a;
     a.px = static_cast<int32_t*>(px);
@@ -346,7 +370,9 @@ int kt_delta_launch(int variant, void* px, void* py, void* d, const void* jx,
     a.dpd = static_cast<int32_t*>(dpd);
     a.dstep = static_cast<int32_t*>(dstep);
     a.symclass = nullptr;
-    fn<<<n / kt::LANES, kt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    a.scratch = static_cast<uint32_t*>(scratch);
+    fn<<<n / (kt::THREADS * group), kt::THREADS, 0,
+         static_cast<cudaStream_t>(stream)>>>(
         a, static_cast<const int32_t*>(jx), static_cast<const int32_t*>(jy),
         static_cast<const int32_t*>(jd));
     return (int)cudaGetLastError();

@@ -8,8 +8,8 @@
 //      inversion (the walk's geometry).
 //   P2 raw chains: one 32-bit instruction per element and iteration,
 //      ILP independent chains per thread, the loop index mixed in.
-//   P3 is walk_thread itself with a variant type (walk.cuh); the
-//      variants are defined here.
+//   P3 is walk_thread itself with a variant type (walk.cuh), and base
+//      also at G = 32 and 128; the variants are defined here.
 //   P4 inversion chains: the walk's per-thread Montgomery inversion
 //      over G lanes, x <- canon(fn(x) - x) | 1 `iters` times.
 //
@@ -314,6 +314,13 @@ int with_delta_variant_seq(int id, F& f, std::integer_sequence<int, I...>) {
     return rc;
 }
 
+// Whether variant `id` is built at G lanes per thread: base at every G
+// of with_group (the G sweep), the others at the walk kernels' GROUP.
+inline bool delta_has_group(int id, int group) {
+    return group == GROUP
+        || (id == 0 && with_group(group, [](auto) { return 0; }) == 0);
+}
+
 // f(V{}) for the variant with id `id` among ids LO..HI-1 (all of them
 // by default; only those are instantiated); returns f's result, or -1
 // for another id.
@@ -339,8 +346,8 @@ KT_HD void inv_chain_next(uint32_t y[8], const uint32_t x[8]) {
 // `iters` rounds for thread t of block blk, which owns lanes
 // blk * THREADS * G + g * THREADS + t, g < G (the walk's layout), in
 // place.  cur: Montgomery's trick over the G lanes (prefix products,
-// one fe_inv, the unwind); nodiv: the same with fe_inv replaced by a
-// copy; none: fn(x) = x - x.
+// one fe_inv -- the walk's safegcd --, the unwind); nodiv: the same with
+// fe_inv replaced by a copy; none: fn(x) = x - x.
 template <int VAR, int G>
 KT_HD void inv_chain_thread(int32_t* px, size_t n, size_t blk, int t,
                             int iters, uint32_t (*acc)[8]) {

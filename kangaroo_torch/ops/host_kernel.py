@@ -44,10 +44,10 @@ _SIGNATURES = {
     "kt_fe_is_high_n": ([_P, _P, _I], None),
     "kt_fe_neg_n": ([_P, _P, _I], None),
     "kt_neg_u128_n": ([_P, _I], None),
-    "kt_walk_host": ([_P] * 7 + [_I] * 3 + [_P] * 5, _I),
+    "kt_walk_host": ([_P] * 7 + [_I] * 3 + [_P] * 6, _I),
     "kt_field_chain_host": ([_I] + [_P] * 4 + [_I, _I], _I),
     "kt_raw_chain_host": ([_I, _I, _P, _I, _I], _I),
-    "kt_delta_host": ([_I] + [_P] * 7 + [_I] * 3 + [_P] * 4, _I),
+    "kt_delta_host": ([_I, _I] + [_P] * 7 + [_I] * 3 + [_P] * 5, _I),
     "kt_inv_chain_host": ([_I, _I, _P, _I, _I], _I),
 }
 
@@ -97,11 +97,12 @@ def walk(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
     count, dpx, dpd, step = jump_cuda.check_walk_args(
         px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
         symclass if symmetry else None)
+    scratch = jump_cuda.window_scratch(n, px.device)
     call("kt_walk_host",
          *(t.data_ptr() for t in (px, py, d, jx, jy, jd, dp_masks)),
          n, nb_run, slots,
          *(t.data_ptr() for t in (count, dpx, dpd, step)),
-         symclass.data_ptr() if symmetry else None)
+         symclass.data_ptr() if symmetry else None, scratch.data_ptr())
     out = (px, py, d, count, dpx, dpd, step)
     return out + (symclass,) if symmetry else out
 
@@ -132,7 +133,7 @@ def fe_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fe_inv(a: torch.Tensor) -> torch.Tensor:
-    """field.cuh's fe_inv (the Fermat chain) on (16, N) limbs."""
+    """field.cuh's fe_inv (safegcd, canonical) on (16, N) limbs."""
     wa = to_words(a)
     r = np.empty_like(wa)
     load().kt_fe_inv_n(r.ctypes.data, wa.ctypes.data, wa.shape[0])
@@ -175,20 +176,22 @@ def raw_chain(op: str, x: torch.Tensor, inner: int,
 
 
 def delta_walk(variant: str, px, py, d, jx, jy, jd, dp_masks, nb_run: int,
-               slots: int):
-    """P3's body (probe_cuda.delta_walk) on the host, the herd in place;
-    returns (px, py, d, count, dpx, dpd, step)."""
+               slots: int, group: int = jump_cuda.GROUP):
+    """P3's body (probe_cuda.delta_walk) on the host at G = group, the
+    herd in place; returns (px, py, d, count, dpx, dpd, step)."""
     count, dpx, dpd, step = jump_cuda.check_walk_args(
-        px, py, d, jx, jy, jd, dp_masks, nb_run, slots)
-    call("kt_delta_host", DELTA_VARIANTS.index(variant),
+        px, py, d, jx, jy, jd, dp_masks, nb_run, slots, group=group)
+    scratch = jump_cuda.window_scratch(px.shape[1], px.device)
+    call("kt_delta_host", DELTA_VARIANTS.index(variant), group,
          *(t.data_ptr() for t in (px, py, d, jx, jy, jd, dp_masks)),
          px.shape[1], nb_run, slots,
-         *(t.data_ptr() for t in (count, dpx, dpd, step)))
+         *(t.data_ptr() for t in (count, dpx, dpd, step)),
+         scratch.data_ptr())
     return px, py, d, count, dpx, dpd, step
 
 
 def inv_chain(variant: str, x: torch.Tensor, iters: int,
-              group: int = 128) -> torch.Tensor:
+              group: int = jump_cuda.GROUP) -> torch.Tensor:
     """P4's body (probe_cuda.inv_chain) on the host, x in place."""
     _need(x, (16, x.shape[1]))
     call("kt_inv_chain_host", INV_VARIANTS.index(variant), group,

@@ -6,25 +6,39 @@ symmetry branch :331-377, :406-415 and its epilogue :585-607) with one
 hand-written CUDA C++ kernel for sm_90a in two instantiations, plain
 and symmetry, built by nvcc at first use and bound with ctypes.
 
-What bounds it on an H100.  The function needs ~1030 32-bit integer
-multiply-add issue slots per jump (`imad_per_jump`) and next to no
-memory traffic: that is its bound.  Per jump a thread spends 5 field
-multiplies (prefix product, two unwind steps, lam, y3) and 1 squaring
-(lam^2) on its lane, plus 1/G of the Fermat inversion (255 squarings,
-15 multiplies) it shares with its G lanes.  The design answers that by
-sharing one inversion over G = 128 lanes per thread (Montgomery's
-trick, the reference GPU kernel's grouped inverse and group size), a
-dedicated squaring (36 wide products instead of 64), and a jump table
-in shared memory (jmp differs across a warp, so constant memory would
-serialize).  It pays for its simplicity in traffic: it re-streams the
-limb state and the prefix products through device memory every step,
-`STATE_BYTES_PER_JUMP` = 448 B per lane and step, a floor
-(`design_traffic_ms`) above the multiply-add bound.  Holding the state
-in registers across steps is later work.  The symmetry kernel
-normalizes each lane's class eagerly every step (no multiply: a
-canonicalize, a compare, a conditional p - y and 128-bit negate) and
-streams the lane's class as well, `SYM_STATE_BYTES` more per lane and
-step.
+What bounds it on an H100.  The function needs ~832 32-bit integer
+multiply-add issue slots per jump and next to no memory traffic: that
+is its bound (`bound_ms`).  Per jump a lane needs 3 field multiplies of
+Montgomery's trick (prefix product, two unwind steps), a multiply each
+for lam and y3 and a squaring for lam^2, and a share of one safegcd
+inversion (`INV_IMAD`: 20 batches of 30 divsteps, their 2x2 matrices
+applied by 78 wide products a batch), which at least can be shared by
+the whole herd: `imad_per_jump(n)`.  This design shares an inversion
+among the G = 64 lanes of a thread and issues 874.4 slots per jump
+(`imad_per_jump(GROUP)`, the design's count, not the bound), and its
+own state traffic, `STATE_BYTES_PER_JUMP` = 256 B per lane and step, is
+a floor (`design_traffic_ms`) above the bound.  What sets the time is
+the issue of the multiply and carry chains (the probes price one field
+multiply per lane at ~13 % of a step, the whole state traffic at ~17 %,
+the inversion at ~4 %).  The design
+  * inverts by safegcd (constant time, no divergence): 3160
+    multiply-add slots against a Fermat chain's 25,680, and a dependent
+    chain short enough to share over G = 64 lanes, so that 2^22 lanes
+    make 65,536 threads;
+  * runs THREADS x GROUP = 128 x 64 lanes per block, at most 128
+    registers a thread (launch bounds: MIN_BLOCKS = 4 blocks per SM),
+    i.e. 4 warps per scheduler and 2^22 lanes in one wave of 512
+    blocks;
+  * packs a window's state into 32-bit word scratch rows (x, y, d:
+    `SCRATCH_ROWS` x n, allocated here) that the steps stream instead
+    of the 16-bit limb rows: 256 B per lane and step, not 448;
+  * keeps the jump table in shared memory (jmp differs across a warp,
+    so constant memory would serialize) and a dedicated squaring (36
+    wide products instead of 64).
+The symmetry kernel normalizes each lane's class eagerly every step (no
+multiply: a canonicalize, a compare, a conditional p - y and 128-bit
+negate) and streams the lane's class as well, `SYM_STATE_BYTES` more
+per lane and step.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version `jump_ref.jump_steps_with_dp`.
@@ -47,29 +61,38 @@ LAUNCHES = 0
 #: launches of the symmetry walk kernel in this process
 SYM_LAUNCHES = 0
 
-# Geometry of the kernel (THREADS threads x GROUP lanes per block,
-# walk.cuh); the library reports its own and load() checks it.
+# Geometry of the kernels (THREADS threads x GROUP lanes per block,
+# MIN_BLOCKS resident per SM by the launch bounds; walk.cuh); load()
+# checks that the library was built with the same.  The window's packed
+# state takes SCRATCH_ROWS 32-bit words per lane.
 THREADS = 128
-GROUP = 128
+GROUP = 64
+MIN_BLOCKS = 4
 LANE_QUANTUM = THREADS * GROUP
+SCRATCH_ROWS = 8 + 8 + 4
 # Captured step indices ship to the host as uint16.
 MAX_NB_RUN = 1 << 16
 
 # IMAD issue slots per field multiply and squaring (field.cuh: 64 resp.
 # 36 wide products + 8 in the reduction, a wide one counted as 2, plus
-# ~4 for the folds), and the Fermat inversion's chain (fe_inv).
+# ~4 for the folds), and per safegcd inversion (fe_inv: 20 batches, each
+# applying its transition matrix to d, e (9 limbs x 4 wide products, and
+# p's 3 nonzero limbs x 2) and to f, g (9 x 4), and 2 narrow products
+# for the multiples of p: (78 x 2 + 2) x 20).
 MUL_IMAD = 148
 SQR_IMAD = 92
-INV_SQRS, INV_MULS = 255, 15
+INV_IMAD = (78 * 2 + 2) * 20
 # Peak 32-bit integer multiply-add rate of an H100 SXM, derived, not
 # measured: half the FP32 FMA rate on compute capability 9.0 (64 vs 128
 # per SM per clock), i.e. half of 67 TFLOP/s / 2 FLOP per FMA.
 IMAD_PEAK = 67e12 / 2 / 2
 HBM_RATE = 3.35e12  # bytes/s, H100 SXM data sheet
-# Device-memory bytes this design moves per lane and step (walk.cuh),
-# and what the symmetry kernel adds: the lane's class, read in both
+# Device-memory bytes this design moves per lane and step (walk.cuh):
+# the forward pass reads x (32) and writes the prefix product (32), the
+# backward pass reads x, y, d and the prefix product (112) and writes x,
+# y, d (80); the symmetry kernel adds the lane's class, read in both
 # passes and written in one.
-STATE_BYTES_PER_JUMP = 448
+STATE_BYTES_PER_JUMP = 256
 SYM_STATE_BYTES = 12
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -77,25 +100,27 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
 
-def imad_per_jump() -> float:
-    """IMAD issue slots per lane per jump, counted from the source: per
-    group of G lanes, 3 (G - 1) prefix and unwind multiplies, one
-    inversion, and per lane a multiply each for lam and y3 and a
-    squaring for lam^2.  The symmetry kernel's class normalization
-    adds no multiply."""
-    muls = 3 * (GROUP - 1) + INV_MULS + 2 * GROUP
-    sqrs = INV_SQRS + GROUP
-    return (muls * MUL_IMAD + sqrs * SQR_IMAD) / GROUP
+def imad_per_jump(group: int = GROUP) -> float:
+    """IMAD issue slots per lane per jump when `group` lanes share one
+    inversion, counted from the source: per group, G - 1 prefix and
+    2 (G - 1) unwind multiplies and one inversion, and per lane a
+    multiply each for lam and y3 and a squaring for lam^2.  At GROUP it
+    is this design's count; at the herd's lane count it is the
+    function's own need, which `bound_ms` takes.  The symmetry kernel's
+    class normalization adds no multiply."""
+    muls = 3 * (group - 1) + 2 * group
+    return (muls * MUL_IMAD + group * SQR_IMAD + INV_IMAD) / group
 
 
 def bound_ms(n: int, nb_run: int, slots: int, symmetry: bool = False,
              imad: Optional[float] = None) -> tuple:
     """Least time for one launch of n lanes x nb_run jumps on an H100
-    SXM: (ms, "operations" or "bytes").  The bytes are the function's own
-    need: the herd (and in symmetry mode the class row) read once, herd
-    and slot outputs written once.  `imad` replaces imad_per_jump() for a
-    variant of the walk (the probes)."""
-    per_jump = imad_per_jump() if imad is None else imad
+    SXM: (ms, "operations" or "bytes").  Both are the function's own
+    need: imad_per_jump(n) slots per jump (one inversion a step for the
+    whole herd), and the herd (and in symmetry mode the class row) read
+    once, herd and slot outputs written once.  `imad` replaces
+    imad_per_jump(n) for a variant of the walk (the probes)."""
+    per_jump = imad_per_jump(n) if imad is None else imad
     ops_s = n * nb_run * per_jump / IMAD_PEAK
     sc = int(symmetry)
     rows_in = 16 + 16 + 8 + sc
@@ -130,19 +155,44 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            lib.kt_lane_quantum.restype = ctypes.c_int
-            lib.kt_lane_quantum.argtypes = []
             lib.kt_jump_steps.restype = ctypes.c_int
             lib.kt_jump_steps.argtypes = (
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                + [ctypes.c_void_p] * 6
+                + [ctypes.c_void_p] * 7
             )
+            lib.kt_walk_geometry.restype = None
+            lib.kt_walk_geometry.argtypes = [ctypes.c_void_p]
+            lib.kt_walk_occupancy.restype = ctypes.c_int
+            lib.kt_walk_occupancy.argtypes = [ctypes.c_int, ctypes.c_void_p]
             lib.kt_error_string.restype = ctypes.c_char_p
             lib.kt_error_string.argtypes = [ctypes.c_int]
-            if lib.kt_lane_quantum() != LANE_QUANTUM:
+            geo = (ctypes.c_int * 4)()
+            lib.kt_walk_geometry(geo)
+            if tuple(geo) != (THREADS, GROUP, MIN_BLOCKS, SCRATCH_ROWS):
                 raise RuntimeError("walk kernel geometry mismatch")
             _lib = lib
         return _lib
+
+
+def occupancy(n: int, symmetry: bool = False) -> dict:
+    """Registers and local bytes per thread, static shared bytes per
+    block and resident blocks per SM of the plain or the symmetry walk
+    kernel (kt_walk_occupancy), and what they make of a launch of n
+    lanes: its blocks, whether they fit in one wave on the card's SMs,
+    and the warps per scheduler (4 per SM) while it runs."""
+    lib = load()
+    out = (ctypes.c_int * 4)()
+    err = lib.kt_walk_occupancy(int(symmetry), out)
+    if err:
+        raise RuntimeError(f"walk kernel attributes: "
+                           f"{lib.kt_error_string(err).decode()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = n // LANE_QUANTUM
+    resident = min(blocks, out[3] * sms)
+    return {"regs": out[0], "local_bytes": out[1], "smem": out[2],
+            "blocks_per_sm": out[3], "sms": sms, "blocks": blocks,
+            "one_wave": blocks <= out[3] * sms,
+            "warps_per_scheduler": resident * THREADS / 32 / (4 * sms)}
 
 
 def _check(t: torch.Tensor, name: str, shape, device) -> None:
@@ -155,14 +205,17 @@ def _check(t: torch.Tensor, name: str, shape, device) -> None:
 
 
 def check_walk_args(px, py, d, jx, jy, jd, dp_masks, nb_run: int,
-                    slots: int, symclass: Optional[torch.Tensor] = None):
-    """Check a window's arguments as the walk kernels take them, and
-    allocate its zeroed slot outputs; returns (count, dpx, dpd, step)."""
+                    slots: int, symclass: Optional[torch.Tensor] = None,
+                    group: int = GROUP):
+    """Check a window's arguments as the walk kernels take them at G =
+    group lanes per thread, and allocate its zeroed slot outputs;
+    returns (count, dpx, dpd, step)."""
     n = px.shape[1]
     dev = px.device
-    if n % LANE_QUANTUM:
+    quantum = THREADS * group
+    if n % quantum:
         raise ValueError(f"herd size {n} is not a multiple of the kernel's "
-                         f"lane quantum {LANE_QUANTUM}")
+                         f"lane quantum {quantum}")
     if not 0 < nb_run < MAX_NB_RUN or slots < 1:
         raise ValueError(f"nb_run must be in [1, {MAX_NB_RUN}) and slots "
                          f">= 1, got {nb_run}, {slots}")
@@ -183,6 +236,12 @@ def check_walk_args(px, py, d, jx, jy, jd, dp_masks, nb_run: int,
     return count, dpx, dpd, step
 
 
+def window_scratch(n: int, device) -> torch.Tensor:
+    """The (SCRATCH_ROWS, n) words a window's state is packed into; the
+    kernel writes every word before it reads it."""
+    return torch.empty((SCRATCH_ROWS, n), dtype=torch.int32, device=device)
+
+
 def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
                        slots: int = 2, symmetry: bool = False,
                        symclass: Optional[torch.Tensor] = None):
@@ -194,7 +253,8 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
     symmetry mode).  On the card the herd and the symmetry class
     (zeros when symclass is None) are updated IN PLACE: the returned
     px/py/d/symclass are the input tensors.  The slot outputs are fresh
-    zeroed tensors.  The launch goes on the current stream and does not
+    zeroed tensors; the window's packed state goes to scratch allocated
+    here.  The launch goes on the current stream and does not
     synchronize.
     """
     if not px.is_cuda:
@@ -210,11 +270,12 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
         px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
         symclass if symmetry else None)
     lib = load()
+    scratch = window_scratch(n, px.device)
     err = lib.kt_jump_steps(
         px.data_ptr(), py.data_ptr(), d.data_ptr(), jx.data_ptr(),
         jy.data_ptr(), jd.data_ptr(), dp_masks.data_ptr(), n, nb_run, slots,
         count.data_ptr(), dpx.data_ptr(), dpd.data_ptr(), step.data_ptr(),
-        symclass.data_ptr() if symmetry else None,
+        symclass.data_ptr() if symmetry else None, scratch.data_ptr(),
         torch.cuda.current_stream(px.device).cuda_stream,
     )
     if err:

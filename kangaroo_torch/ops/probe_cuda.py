@@ -7,7 +7,7 @@ bound with ctypes:
   field_chain  P1 `kt_field_chain<Op>`, scripts/pkbench.py:62 run_chain;
   raw_chain    P2 `kt_raw_chain<Op, ILP>`, scripts/probe_ops.py:49 and
                scripts/layout_probe.py:109;
-  delta_walk   P3 `kt_delta_kernel<V>`, scripts/pkdelta.py:213;
+  delta_walk   P3 `kt_delta_kernel<V, G>`, scripts/pkdelta.py:213;
   inv_chain    P4 `kt_inv_chain<Var, G>`, scripts/pkinv.py:129.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor
@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = collections.Counter()
 
 THREADS = jump_cuda.THREADS
 GROUP = jump_cuda.GROUP
+MIN_BLOCKS = jump_cuda.MIN_BLOCKS
 LANE_QUANTUM = jump_cuda.LANE_QUANTUM
 # (op, ILP) pairs of kt_raw_chain that probe_kernels.cu instantiates
 RAW_ILPS = {op: (4,) for op in RAW_OPS}
@@ -50,7 +51,11 @@ RAW_ILPS["layout"] = (1, 2, 4, 16)
 RAW_ILPS["empty"] = (1,)
 # G of kt_inv_chain per variant
 INV_GROUPS = {"cur": (32, 64, 128, 256), "nodiv": (32, 64, 128, 256),
-              "none": (128,)}
+              "none": (GROUP,)}
+# G of kt_delta_kernel per walk variant: base also at 32 and 128 (the G
+# sweep), the others at the walk kernels' GROUP
+DELTA_GROUPS = {v: (GROUP,) for v in DELTA_VARIANTS}
+DELTA_GROUPS["base"] = (32, 64, 128)
 
 # ---- the card's derived peaks (H100 SXM, compute capability 9.0) ----
 # Per SM and clock (NVIDIA's arithmetic-throughput table for compute
@@ -69,8 +74,12 @@ CLOCK_HZ = jump_cuda.IMAD_PEAK / (64 * SMS)
 PER_SM_CLOCK = {"imad": 64, "fp32": 128, "lds": 32, "issue": 128}
 PEAK = {k: v * SMS * CLOCK_HZ for k, v in PER_SM_CLOCK.items()}
 
-_INV_IMAD = (jump_cuda.INV_SQRS * jump_cuda.SQR_IMAD
-             + jump_cuda.INV_MULS * jump_cuda.MUL_IMAD)
+# Integer add, logic and shift instructions of one safegcd inversion,
+# counted from field.cuh: 600 divsteps of ~27 (the sign and parity
+# masks, three conditional negate-and-adds, the zeta update, three
+# conditional adds, three shifts), and per batch 2 x 2 accumulators x 9
+# limbs of a 64-bit shift pair and a mask.
+INV_ALU = 20 * (30 * 27 + 4 * 9 * 4)
 # Integer add and logic instructions per op, counted from field.cuh at
 # one instruction per word of a carry or borrow chain (the carry flag
 # carries it): fe_sub 8 words and two fe_sub_c passes of 8; fe_add 8 and
@@ -88,7 +97,7 @@ FIELD_COUNTS = {
     "add": {"alu": 8 + FOLD["alu"], "imad": FOLD["imad"]},
     "fold": FOLD,
     "canon": {"alu": CANON_ALU},
-    "inv": {"imad": _INV_IMAD},
+    "inv": {"imad": jump_cuda.INV_IMAD, "alu": INV_ALU + 2 * CANON_ALU},
     "gather": {"alu": 9, "lds": 8},   # index, 8 xors; 8 table words
 }
 # per element and iteration, the loop-index mix shared by a thread's
@@ -127,8 +136,8 @@ _I = ctypes.c_int
 
 def kernel_key(family: str, name: str, arg: int = 0) -> str:
     """The LAUNCHES key of a kernel: field_chain/<op>, raw_chain/<op>
-    @ILP, delta/<variant>, inv_chain/<variant>@G."""
-    if family in ("raw_chain", "inv_chain"):
+    @ILP, delta/<variant>@G, inv_chain/<variant>@G."""
+    if family in ("raw_chain", "inv_chain", "delta"):
         return f"{family}/{name}@{arg}"
     return f"{family}/{name}"
 
@@ -161,10 +170,12 @@ def load() -> ctypes.CDLL:
             sigs = {
                 "kt_probe_threads": ([], _I),
                 "kt_probe_group": ([], _I),
+                "kt_probe_min_blocks": ([], _I),
                 "kt_field_chain_launch": ([_I] + [_P] * 4 + [_I] * 3 + [_P],
                                           _I),
                 "kt_raw_chain_launch": ([_I, _I, _P, _I, _I, _I, _P], _I),
-                "kt_delta_launch": ([_I] + [_P] * 7 + [_I] * 3 + [_P] * 5, _I),
+                "kt_delta_launch": ([_I, _I] + [_P] * 7 + [_I] * 3
+                                    + [_P] * 6, _I),
                 "kt_inv_chain_launch": ([_I, _I, _P, _I, _I, _P], _I),
                 "kt_probe_attrs": ([_I, _I, _I, _I, _P], _I),
                 "kt_probe_error_string": ([_I], ctypes.c_char_p),
@@ -173,8 +184,9 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = res
-            if (lib.kt_probe_threads(), lib.kt_probe_group()) != (THREADS,
-                                                                   GROUP):
+            if (lib.kt_probe_threads(), lib.kt_probe_group(),
+                    lib.kt_probe_min_blocks()) != (THREADS, GROUP,
+                                                   MIN_BLOCKS):
                 raise RuntimeError("probe kernel geometry mismatch")
             _lib = lib
         return _lib
@@ -259,25 +271,27 @@ def raw_chain(op: str, x: torch.Tensor, inner: int, ilp: int = 4,
 
 
 def delta_walk(variant: str, px, py, d, jx, jy, jd, dp_masks, nb_run: int,
-               slots: int):
-    """P3: one window of walk variant `variant`; same contract as
-    jump_cuda.jump_steps_with_dp in plain mode (the herd updated in
-    place, fresh slot outputs)."""
+               slots: int, group: int = GROUP):
+    """P3: one window of walk variant `variant` at G = group lanes per
+    thread (DELTA_GROUPS); same contract as jump_cuda.jump_steps_with_dp
+    in plain mode (the herd updated in place, fresh slot outputs).  The
+    plain version does not depend on G."""
     if not px.is_cuda:
         return probe_ref.delta_walk(variant, px, py, d, jx, jy, jd,
                                     dp_masks, nb_run, slots)
-    if variant not in DELTA_VARIANTS:
-        raise ValueError(f"unknown walk variant {variant!r}")
+    if variant not in DELTA_VARIANTS or group not in DELTA_GROUPS[variant]:
+        raise ValueError(f"no walk variant {variant!r} at G = {group}")
     count, dpx, dpd, step = jump_cuda.check_walk_args(
-        px, py, d, jx, jy, jd, dp_masks, nb_run, slots)
+        px, py, d, jx, jy, jd, dp_masks, nb_run, slots, group=group)
+    scratch = jump_cuda.window_scratch(px.shape[1], px.device)
     lib = load()
     _raise(lib, lib.kt_delta_launch(
-        DELTA_VARIANTS.index(variant),
+        DELTA_VARIANTS.index(variant), group,
         *(t.data_ptr() for t in (px, py, d, jx, jy, jd, dp_masks)),
         px.shape[1], nb_run, slots,
-        *(t.data_ptr() for t in (count, dpx, dpd, step)), _stream(px)),
-        f"walk variant {variant}")
-    LAUNCHES[kernel_key("delta", variant)] += 1
+        *(t.data_ptr() for t in (count, dpx, dpd, step)),
+        scratch.data_ptr(), _stream(px)), f"walk variant {variant}")
+    LAUNCHES[kernel_key("delta", variant, group)] += 1
     return px, py, d, count, dpx, dpd, step
 
 
@@ -336,29 +350,30 @@ def bound_ms(counts: Dict[str, float], work: float,
     return bytes_s * 1e3, "bytes"
 
 
-def field_counts(op: str) -> Dict[str, float]:
-    """Slots per lane and round of a field chain (the step: the walk's
-    multiplies, jump_cuda.imad_per_jump)."""
+def field_counts(op: str, lanes: int) -> Dict[str, float]:
+    """Slots per lane and round of a field chain over `lanes` lanes (the
+    step: the walk's function, jump_cuda.imad_per_jump(lanes))."""
     if op == "step":
-        return {"imad": jump_cuda.imad_per_jump()}
+        return {"imad": jump_cuda.imad_per_jump(lanes)}
     return FIELD_COUNTS[op]
 
 
-def delta_imad_per_jump(variant: str) -> float:
-    """IMAD slots per lane and jump of a walk variant (as
-    jump_cuda.imad_per_jump, with the variant's multiplies)."""
-    g = GROUP
-    muls = 3 * (g - 1) + jump_cuda.INV_MULS + 2 * g
-    sqrs = jump_cuda.INV_SQRS + g
+def delta_imad_per_jump(variant: str, group: int) -> float:
+    """IMAD slots per lane and jump of a walk variant when `group` lanes
+    share an inversion (as jump_cuda.imad_per_jump, with the variant's
+    multiplies): at the kernel's G this design's count, at the herd's
+    lane count the function's own need."""
+    g = group
+    muls, sqrs, inv = 3 * (g - 1) + 2 * g, g, jump_cuda.INV_IMAD
     if variant == "no_inv":
-        muls, sqrs = 2 * g, g
+        muls, inv = 2 * g, 0
     elif variant == "no_sqr":
         sqrs -= g
     elif variant == "no_y3mul":
         muls -= g
     elif variant == "extra_mul":
         muls += g
-    return (muls * jump_cuda.MUL_IMAD + sqrs * jump_cuda.SQR_IMAD) / g
+    return (muls * jump_cuda.MUL_IMAD + sqrs * jump_cuda.SQR_IMAD + inv) / g
 
 
 def inv_counts(variant: str, group: int) -> Dict[str, float]:
@@ -368,5 +383,6 @@ def inv_counts(variant: str, group: int) -> Dict[str, float]:
         return {"alu": alu}
     imad = 3 * (group - 1) * jump_cuda.MUL_IMAD
     if variant == "cur":
-        imad += _INV_IMAD
+        imad += jump_cuda.INV_IMAD
+        alu += INV_ALU / group
     return {"imad": imad / group, "alu": alu}

@@ -218,7 +218,7 @@ def _group_products(x: torch.Tensor, group: int, invert: bool):
 
 
 def inv_chain(variant: str, x: torch.Tensor, iters: int,
-              group: int = 128) -> torch.Tensor:
+              group: int = 64) -> torch.Tensor:
     """P4: `iters` rounds of x <- canon(fn(x) - x) | 1 on (16, N) limbs
     (the | 1 on every limb, as pkinv's), fn the batch inversion over
     groups of `group` lanes (cur), the same without its inversion

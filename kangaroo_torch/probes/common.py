@@ -14,9 +14,9 @@ from ..utils import sass
 from ..utils.build import BUILD_DIR
 
 REPS = 3
-# dynamic shared memory per block that leaves room for 2 blocks per SM:
-# the walk kernel's occupancy (2 blocks of 128 threads, 2 warps per
-# scheduler), for a probe that alone would run more
+# dynamic shared memory per block that leaves room for 2 blocks per SM
+# (2 blocks of 128 threads, 2 warps per scheduler: the walk kernel's
+# occupancy at 190 registers), for a probe that alone would run more
 OCC2_SMEM = 100 * 1024
 
 

@@ -15,10 +15,10 @@ thread (ILP) against the number of threads:
   empty     the loop alone, x <- x + 1, on 16 W elements; nvcc sums it
             in closed form, so it times the launch and one read and
             write per element, the floor the others are read against
-  wide_occ2 wide with the walk kernel's occupancy: dynamic shared
-            memory holds it to 2 blocks of 128 threads per SM (2 warps
-            per scheduler), so it shows whether the walk's occupancy
-            hides the multiply's latency.
+  wide_occ2 wide at 2 warps per scheduler: dynamic shared memory
+            holds it to 2 blocks of 128 threads per SM (the walk
+            kernel's occupancy at 190 registers), so it shows whether
+            that occupancy hides the multiply's latency.
 
     python -m kangaroo_torch.probes.layout_probe [W=4096] [iters=131072] [variants]
 """

@@ -8,17 +8,17 @@ per-op cost is measured as the card executes it.
 
 Rows: field.cuh's fe_mul, fe_sqr, fe_sub, fe_add, fe_fold (in place of
 the TPU's 16-bit-limb carry pass `_carry_exact(16)`, which has no
-32-bit-word counterpart), fe_canon, fe_inv (the Fermat chain in place of
-`modinv`, on every lane and on one block of 128 lanes), the
-shared-memory table gather, a jump step without DP or distance on the
-walk's geometry (G = 128 lanes per thread, one grouped inversion),
-`batch_inv(stop=128)` as pkinv's `cur` at G = 128, and the production
-walk kernel (dp 20, 2 slots).  fe_mul and fe_sqr run once more at the
-walk kernel's occupancy (2 blocks of 128 threads per SM, held there by
-dynamic shared memory): their chains alone need far fewer registers
-than the walk and run several times as many warps.  The default lane
-count is the walk's herd, so that the rows whose thread owns 128 lanes
-run the walk's 32768 threads.
+32-bit-word counterpart), fe_canon, fe_inv (the safegcd inversion, the
+counterpart of `modinv`, on every lane and on one block of 128 lanes:
+its latency), the shared-memory table gather, a jump step without DP or
+distance on the walk's geometry (G = 64 lanes per thread, one grouped
+inversion), `batch_inv` as pkinv's `cur` at the walk's G, and the
+production walk kernel (dp 20, 2 slots).  fe_mul and fe_sqr run once
+more at 2 blocks of 128 threads per SM (2 warps per scheduler, held
+there by dynamic shared memory): their chains alone need far fewer
+registers than the walk and run several times as many warps.  The
+default lane count is the walk's herd, so that the rows whose thread
+owns G lanes run the walk's threads.
 """
 
 from __future__ import annotations
@@ -89,13 +89,12 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
         tabs = tables(op, tbl, jx, jy)
         ms = common.time_ms(
             lambda: probe_cuda.field_chain(op, x, b, r, *tabs))
-        bound = probe_cuda.bound_ms(probe_cuda.field_counts(op), n * r,
+        bound = probe_cuda.bound_ms(probe_cuda.field_counts(op, n), n * r,
                                     3 * 64 * n)
         rows.append(_row(LABELS[op], probe_cuda.kernel_key("field_chain", op),
                          ms, r, n, bound))
-    # the multiply and the squaring at the walk kernel's occupancy (2
-    # blocks of 128 threads per SM), where the chains alone would run
-    # several times as many warps
+    # the multiply and the squaring at 2 blocks of 128 threads per SM,
+    # where the chains alone would run several times as many warps
     for op in ("mul", "sqr"):
         x = a.clone()
         r = ROUNDS[op]
@@ -108,9 +107,9 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
             op, x, b, r, smem=common.OCC2_SMEM))
         rows.append(_row(f"{LABELS[op]} @2 blocks/SM",
                          probe_cuda.kernel_key("field_chain", op), ms, r, n,
-                         probe_cuda.bound_ms(probe_cuda.field_counts(op),
+                         probe_cuda.bound_ms(probe_cuda.field_counts(op, n),
                                              n * r, 3 * 64 * n)))
-    # the Fermat chain's latency: one block, one lane per thread
+    # the inversion's latency: one block, one lane per thread
     x = a[:, :INV_LANES].contiguous()
     b1 = b[:, :INV_LANES].contiguous()
     r = ROUNDS["inv"]
@@ -118,15 +117,17 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
     rows.append(_row(f"fe_inv ({INV_LANES} lanes)",
                      probe_cuda.kernel_key("field_chain", "inv"), ms, r,
                      INV_LANES, probe_cuda.bound_ms(
-                         probe_cuda.field_counts("inv"), INV_LANES * r,
+                         probe_cuda.field_counts("inv", INV_LANES),
+                         INV_LANES * r,
                          3 * 64 * INV_LANES)))
     x = a.clone()
     ms = common.time_ms(
         lambda: probe_cuda.inv_chain("cur", x, BATCH_ITERS, probe_cuda.GROUP))
-    rows.append(_row("batch_inv (cur, G=128)",
-                     probe_cuda.kernel_key("inv_chain", "cur", 128), ms,
+    g = probe_cuda.GROUP
+    rows.append(_row(f"batch_inv (cur, G={g})",
+                     probe_cuda.kernel_key("inv_chain", "cur", g), ms,
                      BATCH_ITERS, n, probe_cuda.bound_ms(
-                         probe_cuda.inv_counts("cur", 128), n * BATCH_ITERS,
+                         probe_cuda.inv_counts("cur", g), n * BATCH_ITERS,
                          2 * 64 * n)))
     tabs = [torch.from_numpy(t.astype(np.int32)).to(dev)
             for t in create_jump_table(64).as_arrays()]
@@ -154,13 +155,14 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
             print(f"  kt_field_chain<{op}>: "
                   f"{common.occupancy('field_chain', op)}; static SASS "
                   f"{static}; source count per round "
-                  f"{probe_cuda.field_counts(op)}", flush=True)
+                  f"{probe_cuda.field_counts(op, n)}", flush=True)
     return rows
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    common.header("pkbench", ["kt_field_chain", "kt_inv_chain<0, 128>"])
+    common.header("pkbench", ["kt_field_chain",
+                              f"kt_inv_chain<0, {probe_cuda.GROUP}>"])
     run(int(argv[0]) if argv else LANES_LOG2)
 
 

@@ -3,19 +3,19 @@
 The counterpart of scripts/pkinv.py: each variant is chained `iters`
 times, x <- canon(fn(x) - x) | 1, so every iteration depends on the
 last.  fn is the walk's per-thread Montgomery inversion over G lanes
-(prefix products in local memory, one fe_inv, the unwind):
+(prefix products in local memory, one safegcd fe_inv, the unwind):
 
-  cur      the inversion as the walk runs it, at G = 128; cur32, cur64
-           and cur256 at G = 32, 64, 256
+  cur      the inversion as the walk runs it, at G = 64; cur32, cur128
+           and cur256 at G = 32, 128, 256
   nodiv    the same with fe_inv replaced by a copy (nodiv32, ...)
   none     fn(x) = x - x: the chain's own cost
 
 The TPU's pair, stub and stub1024 probe Mosaic's per-call floor on
 narrow arrays and have no Hopper counterpart; their question, what the
 inversion costs per lane as G varies, is the G sweep.  Every variant
-runs 2^W_log2 / 128 threads, the walk's thread count at its herd, so at
-G lanes per thread it inverts 2^W_log2 * G / 128 lanes: the card holds
-the walk's occupancy whatever G.
+runs 2^W_log2 / 64 threads, the walk's thread count at its herd, so at
+G lanes per thread it inverts 2^W_log2 * G / 64 lanes: the card holds
+the walk's thread count whatever G.
 
     python -m kangaroo_torch.probes.pkinv [W_log2=22] [iters=64] [variants]
 """
@@ -32,7 +32,7 @@ from . import common
 W_LOG2 = 22
 ITERS = 64
 # nodiv before cur at each G: cur - nodiv is the fe_inv's share
-DEFAULT = ["none", "nodiv32", "cur32", "nodiv64", "cur64", "nodiv", "cur",
+DEFAULT = ["none", "nodiv32", "cur32", "nodiv", "cur", "nodiv128", "cur128",
            "nodiv256", "cur256"]
 
 
@@ -50,7 +50,7 @@ def traffic_bytes(variant: str) -> int:
 
 
 def parse(name: str):
-    """'cur' -> ('cur', 128), 'nodiv32' -> ('nodiv', 32)."""
+    """'cur' -> ('cur', GROUP), 'nodiv32' -> ('nodiv', 32)."""
     for var in ("nodiv", "none", "cur"):
         if name.startswith(var):
             return var, int(name[len(var):] or probe_cuda.GROUP)

@@ -7,9 +7,10 @@ Prints one line per measurement, at the main path's shape (2^22 lanes,
   * herd creation, split into the host part (MT19937 draws) and the
     rest (scalar and distance limbs, batched k*G and the wild key add
     on the card);
-  * the walk kernel: ms per launch (CUDA events, after a warm-up),
-    G jumps/s, the function's IMAD bound and this design's traffic
-    floor.
+  * the walk kernel: its geometry and occupancy (threads x G lanes
+    per block, registers, resident blocks per SM, warps per scheduler),
+    ms per launch (CUDA events, after a warm-up), G jumps/s, the
+    function's IMAD bound and this design's traffic floor.
 """
 
 from __future__ import annotations
@@ -72,13 +73,21 @@ def profile_kernel(state, dev):
         return jump_cuda.jump_steps_with_dp(*state, jx, jy, jd, masks,
                                             nb_run=STEPS, slots=SLOTS)
 
+    occ = jump_cuda.occupancy(n)
+    print(f"walk kernel: {jump_cuda.THREADS} threads x {jump_cuda.GROUP} "
+          f"lanes per block, {occ['regs']} registers, {occ['local_bytes']} "
+          f"B local, {occ['blocks_per_sm']} blocks/SM, "
+          f"{occ['warps_per_scheduler']:.2f} warps per scheduler at {n} "
+          f"lanes", flush=True)
     run()  # warm-up
     _, ms = cuda_ms(run, reps=2)
     bound, by = jump_cuda.bound_ms(n, STEPS, SLOTS)
     print(f"walk: {ms:.1f} ms/launch of {n} lanes x {STEPS} steps, "
           f"{n * STEPS / ms / 1e6:.3f} G jumps/s; bound {bound:.1f} ms "
-          f"({by}, {jump_cuda.imad_per_jump():.0f} IMAD/jump); design "
-          f"traffic floor {jump_cuda.design_traffic_ms(n, STEPS):.1f} ms",
+          f"({by}, {jump_cuda.imad_per_jump(n):.1f} IMAD/jump); this "
+          f"design's {jump_cuda.imad_per_jump():.1f} IMAD/jump at G "
+          f"{jump_cuda.GROUP} and traffic floor "
+          f"{jump_cuda.design_traffic_ms(n, STEPS):.1f} ms",
           flush=True)
 
 

@@ -94,6 +94,20 @@ def test_sym_kernel_matches_plain_on_card(card, dp_size, slots):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_walk_kernel_fits_one_wave_without_spill(card, symmetry):
+    """Each walk kernel: at most 128 registers and no local memory but
+    its prefix products (G x 32 B), MIN_BLOCKS resident blocks per SM,
+    and a 2^22-lane grid in one wave."""
+    occ = jump_cuda.occupancy(1 << 22, symmetry)
+    assert occ["regs"] <= 65536 // (jump_cuda.THREADS
+                                    * jump_cuda.MIN_BLOCKS)
+    assert occ["local_bytes"] <= jump_cuda.GROUP * 32
+    assert occ["blocks_per_sm"] >= jump_cuda.MIN_BLOCKS
+    assert occ["one_wave"]
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):
     n = jump_cuda.LANE_QUANTUM
     z16 = torch.zeros((16, n), dtype=torch.int32, device=card)
@@ -162,19 +176,25 @@ def test_raw_chain_matches_plain_on_card(card, op, ilp, smem):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", probe_ref.DELTA_VARIANTS)
-def test_delta_walk_matches_plain_on_card(card, variant):
-    """P3 on 2 blocks x 4 steps, dp 3 and 2 slots (lanes overflow)."""
-    n = 2 * jump_cuda.LANE_QUANTUM
+@pytest.mark.parametrize("variant,group", [
+    pytest.param(v, g, id=v if g == jump_cuda.GROUP else f"{v}-G{g}")
+    for v in probe_ref.DELTA_VARIANTS for g in probe_cuda.DELTA_GROUPS[v]])
+def test_delta_walk_matches_plain_on_card(card, variant, group):
+    """P3 at its G on 2 blocks x 4 steps, dp 3 and 2 slots (lanes
+    overflow)."""
+    n = 2 * jump_cuda.THREADS * group
     rs = np.random.RandomState(3)
     state = [_limbs(rs, r, n, card) for r in (16, 16, 8)]
     tabs = [torch.from_numpy(a.astype("int32")).to(card)
             for a in create_jump_table(64).as_arrays()]
     masks = jump_ref.dp_limb_masks(3, card)
+    key = probe_cuda.kernel_key("delta", variant, group)
+    launches = probe_cuda.LAUNCHES[key]
     got = probe_cuda.delta_walk(variant, *[t.clone() for t in state], *tabs,
-                                masks, 4, 2)
+                                masks, 4, 2, group)
     want = probe_ref.delta_walk(variant, *state, *tabs, masks, 4, 2)
     torch.cuda.synchronize()
+    assert probe_cuda.LAUNCHES[key] == launches + 1
     for name, a, b in zip(NAMES, got, want):
         if name == "py":
             a, b = field.canonicalize(a), field.canonicalize(b)

@@ -4,11 +4,11 @@ csrc/field.cuh and csrc/walk.cuh are the code nvcc compiles into the
 CUDA walk kernel; csrc/host_shim.cpp exposes them through a plain C
 interface, so here g++ builds the very same code for the CPU
 (ops/host_kernel.py builds and binds it).  The field
-ops are held against Python ints, and the kernel body, run thread by
-thread on the host at the kernel's real geometry, against the JAX
-package's reference walk and the port's plain walk on the same inputs
-(bit-equal px, d, count and DP slots, py equal mod p), in plain and in
-symmetry mode (there also symclass, and py canonical).
+ops are held against Python ints (the safegcd inversion also against the
+JAX package's modinv), and the kernel body, run thread by thread on the
+host at the kernel's real geometry, against the JAX package's reference walk and the port's plain walk on
+the same inputs (bit-equal px, d, count and DP slots, py equal mod p),
+in plain and in symmetry mode (there also symclass, and py canonical).
 """
 
 import shutil
@@ -20,10 +20,12 @@ torch = pytest.importorskip("torch")
 # the suite runs in parallel worker processes: one thread each
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from kangaroo_tpu.core import curve as jcurve, herd as jherd  # noqa: E402
 from kangaroo_tpu.core.jumptable import create_jump_table  # noqa: E402
+from kangaroo_tpu.ops import field as jfield  # noqa: E402
 from kangaroo_tpu.ops import jump_ref as jref  # noqa: E402
 from kangaroo_tpu.utils.rng import MT19937  # noqa: E402
 from kangaroo_torch import interop  # noqa: E402
@@ -88,6 +90,30 @@ def test_sqr_inv_canon(lib):
     assert unwords(c) == [v % P for v in vals]
 
 
+def test_fe_inv_safegcd_matches_fermat_and_jax_modinv(lib):
+    """fe_inv (safegcd) against pow(x, p-2, p) and the JAX package's
+    modinv on the same inputs: edge cases 0 (inv(0) = 0), 1, p - 1,
+    relaxed inputs p .. 2^256 - 1 (fe_inv canonicalizes first; modinv
+    takes their canonical value) and random values; canonical results,
+    bit-equal."""
+    edge = [0, 1, 2, P - 1, P - 2, (P - 1) // 2, (P + 1) // 2, P, P + 1,
+            P + 2, (1 << 256) - 1, (1 << 256) - 2, (1 << 32) + 977,
+            1 << 255, (1 << 255) - 1, 1 << 224]
+    rnd = [int.from_bytes(RS.bytes(32), "little") for _ in range(496)]
+    vals = edge + [v % P if i % 2 else v for i, v in enumerate(rnd)]
+    wa = words(vals)
+    r = np.zeros_like(wa)
+    lib.kt_fe_inv_n(r.ctypes.data, wa.ctypes.data, len(vals))
+    got = unwords(r)
+    assert got == [pow(v % P, P - 2, P) for v in vals]
+    canon = words([v % P for v in vals])
+    limbs = np.empty((16, len(vals)), np.uint32)
+    limbs[0::2], limbs[1::2] = (canon & 0xFFFF).T, (canon >> 16).T
+    jax_inv = np.asarray(jax.jit(jfield.modinv)(jnp.asarray(limbs)))
+    assert got == unwords(np.ascontiguousarray(
+        (jax_inv[0::2] | (jax_inv[1::2] << 16)).T))
+
+
 def test_add_u128(lib):
     d = [int.from_bytes(RS.bytes(16), "little") for _ in range(500)]
     e = [int.from_bytes(RS.bytes(16), "little") for _ in range(500)]
@@ -131,20 +157,25 @@ def _host_window(lib, st, nb_run, slots, symclass=None):
     dpx = torch.zeros((slots, 10, n), dtype=torch.int32)
     dpd = torch.zeros((slots, 8, n), dtype=torch.int32)
     step = torch.zeros((slots, n), dtype=torch.int32)
+    scratch = torch.full((jump_cuda.SCRATCH_ROWS, n), -1, dtype=torch.int32)
     sc = None if symclass is None else torch.from_numpy(
         symclass.astype(np.int32))
     rc = lib.kt_walk_host(
         *(x.data_ptr() for x in (hx, hy, hd, jx, jy, jd, masks)),
         n, nb_run, slots,
         *(x.data_ptr() for x in (count, dpx, dpd, step)),
-        None if sc is None else sc.data_ptr())
+        None if sc is None else sc.data_ptr(), scratch.data_ptr())
     assert rc == 0
     out = (hx, hy, hd, count, dpx, dpd, step)
     return out if sc is None else out + (sc,)
 
 
-@pytest.mark.parametrize("dp_size,slots", [(4, 2), (12, 3)],
-                         ids=["overflow", "sparse"])
+# (dp_size, slots) of a window with and without slot overflow
+WINDOWS = pytest.mark.parametrize("dp_size,slots", [(4, 2), (12, 3)],
+                                  ids=["overflow", "sparse"])
+
+
+@WINDOWS
 def test_kernel_body_matches_plain_walk(lib, dp_size, slots):
     """One launch window of the kernel body at its real geometry (one
     block of THREADS x GROUP lanes) vs the JAX reference walk and the
@@ -177,7 +208,8 @@ def test_kernel_body_matches_plain_walk(lib, dp_size, slots):
     assert bool((count > slots).any()) == (dp_size == 4)
 
 
-def test_sym_kernel_body_matches_plain_walk(lib):
+@WINDOWS
+def test_sym_kernel_body_matches_plain_walk(lib, dp_size, slots):
     """The symmetry kernel body at its real geometry, from a symclass
     input that holds both classes, vs the JAX reference walk in
     symmetry mode and the port's plain symmetry walk: px, py (both
@@ -185,7 +217,7 @@ def test_sym_kernel_body_matches_plain_walk(lib):
     passes of the kernel index the table by the lane's class, and only
     the backward pass writes the new one: a kernel that let the forward
     pass see the new class would disagree here."""
-    n, nb_run, rp, dp_size, slots = jump_cuda.LANE_QUANTUM, 6, 64, 4, 2
+    n, nb_run, rp = jump_cuda.LANE_QUANTUM, 6, 64
     wd2 = ((1 << rp) - 1) >> 1
     px, py, d = jherd.create_herd(n, rp, wd2, jcurve.mul(0xDEADBEEF12345),
                                   1, MT19937(8), symmetry=True)
@@ -208,7 +240,8 @@ def test_sym_kernel_body_matches_plain_walk(lib):
         assert torch.equal(g, want_jax[name]), f"{name} vs JAX jump_ref"
         assert torch.equal(g, w), f"{name} vs the plain walk"
     count, new_sc = got[3], got[7]
-    assert int(count.sum()) > 0 and bool((count > slots).any())
+    assert int(count.sum()) > 0
+    assert bool((count > slots).any()) == (dp_size == 4)
     # the window flipped some lanes' classes and kept others
     flipped = int((new_sc != torch.from_numpy(sc.astype(np.int32))).sum())
     assert 0 < flipped < n

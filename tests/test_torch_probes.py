@@ -35,7 +35,7 @@ from kangaroo_tpu.ops import field as jfield  # noqa: E402
 from kangaroo_tpu.ops import jump_pallas, jump_ref as jref  # noqa: E402
 from kangaroo_torch.core.jumptable import create_jump_table  # noqa: E402
 from kangaroo_torch.ops import (  # noqa: E402
-    field, host_kernel, jump_cuda, jump_ref, probe_ref)
+    field, host_kernel, jump_cuda, jump_ref, probe_cuda, probe_ref)
 
 SCRIPTS = Path(__file__).resolve().parents[1] / "scripts"
 N = 128
@@ -298,22 +298,44 @@ def _walk_inputs(seed, n):
     return state, tabs
 
 
-@pytest.mark.parametrize("variant", probe_ref.DELTA_VARIANTS)
-def test_host_delta_walk_matches_plain(lib, variant):
+# every (variant, G) the probe kernels build: the walk kernels' G keeps
+# the plain variant ids
+DELTA_CASES = [pytest.param(v, g, id=v if g == jump_cuda.GROUP
+                            else f"{v}-G{g}")
+               for v in probe_ref.DELTA_VARIANTS
+               for g in probe_cuda.DELTA_GROUPS[v]]
+
+
+@pytest.mark.parametrize("variant,group", DELTA_CASES)
+def test_host_delta_walk_matches_plain(lib, variant, group):
     """kt_delta_kernel's body (walk_thread with the variant type) at the
-    kernel's real geometry, one block x 3 steps, dp 3 with 2 slots so
-    that lanes overflow: px, d, count and every slot bit-equal, py mod
-    p."""
-    n = jump_cuda.LANE_QUANTUM
+    kernel's real geometry and its G, one block x 3 steps, dp 3 with 2
+    slots so that lanes overflow: px, d, count and every slot bit-equal,
+    py mod p."""
+    n = jump_cuda.THREADS * group
     state, tabs = _walk_inputs(9, n)
     masks = jump_ref.dp_limb_masks(3)
     got = host_kernel.delta_walk(variant, *[t.clone() for t in state],
-                                 *tabs, masks, 3, 2)
+                                 *tabs, masks, 3, 2, group)
     want = probe_ref.delta_walk(variant, *state, *tabs, masks, 3, 2)
     for i, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(canon(g) if i == 1 else g,
                            canon(w) if i == 1 else w), i
     assert (int(got[3].sum()) > 0) == (variant != "no_dp")
+
+
+@pytest.mark.parametrize("variant,group", [
+    ("base", 16), ("base", 256), ("no_sqr", 32), ("no_inv", 128)])
+def test_host_delta_walk_refuses_a_g_it_is_not_built_for(lib, variant,
+                                                         group):
+    """The body's builds (walk.cuh with_group, probes.cuh
+    delta_has_group) are the G that DELTA_GROUPS lists: a variant at
+    another G is refused, not run at the wrong G."""
+    assert group not in probe_cuda.DELTA_GROUPS[variant]
+    state, tabs = _walk_inputs(11, jump_cuda.THREADS * group)
+    with pytest.raises(ValueError, match="refused"):
+        host_kernel.delta_walk(variant, *state, *tabs,
+                               jump_ref.dp_limb_masks(3), 1, 2, group)
 
 
 def test_host_delta_base_is_the_production_body(lib):
@@ -382,7 +404,7 @@ def test_smoke_group_sample_keeps_the_kernels_groups(lib, blocks):
 
 @pytest.mark.parametrize("variant,group", [
     ("cur", 32), ("cur", 128), ("cur", 256), ("nodiv", 32),
-    ("nodiv", 128), ("none", 128)])
+    ("nodiv", 128), ("none", jump_cuda.GROUP)])
 def test_host_inv_chain_matches_plain(lib, variant, group):
     """kt_inv_chain's body on one block of its G (128 G lanes) x 2
     iterations."""
