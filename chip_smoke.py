@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port (kangaroo_torch).
 
-Drives the port's main paths on one CUDA card -- the solve, the probe
+Drives the port's main paths on one CUDA card -- the solve, its work
+files (checkpoint, resume, -wsplit merge, -winfo, -wcheck), the probe
 entry points, -check -- and holds every kernel against its plain
 PyTorch version, phase by phase; any fault raises and the exit code is
 non-zero.  Run from the repository root:
@@ -39,6 +40,21 @@ Phases:
   5s. end-to-end -sym solve of fixtures/in64.txt at 2^22 lanes with the
      auto DP, through the symmetry kernel only, then the plain in64
      solve with the same seed for its jump count;
+  6. work files, plain: in64 at 2^22 lanes for 2 ticks with a save at
+     every tick (-w, -wi 0, -ws); -winfo of the file; its loaded herd
+     bit-equal to the snapshot the save took (px, canonical py, d);
+     -wcheck on the card with 0 wrong over every DP of the file; the
+     resume through the CLI's -i load path to the key, through the plain
+     kernel only, its count continuing from the file's; the seconds of
+     the save's stall and snapshot copy, write, load, resume and the
+     -wcheck rate;
+  6s. the same with -sym: a version-1 file, a resume without -sym
+     refused with the JAX package's message, the -sym resume through the
+     symmetry kernel only;
+  6w. -wsplit: in64 plain for 3 ticks, a split file per tick, merged by
+     merge_dir; -wcheck of the merged file on the card (0 wrong, its DP
+     count the splits' less the merge's dead), a key the merge finds the
+     fixture's;
   7. probes: each probe kernel (P1 field chains, P2 raw chains, P3 walk
      variants and base at each G, P4 inversion chains) launched as its
      entry point
@@ -354,6 +370,237 @@ def phase_solve(fixture, key, sym=False, tag="5 solve"):
     return launches, st
 
 
+def _reset_counts():
+    from kangaroo_torch.ops import jump_cuda, jump_ref
+
+    jump_cuda.LAUNCHES = 0
+    jump_cuda.SYM_LAUNCHES = 0
+    jump_ref.CALLS = 0
+
+
+def _read_counts(sym, what):
+    """The walk launches since _reset_counts; fails unless they all went
+    through the path's own kernel."""
+    from kangaroo_torch.ops import jump_cuda, jump_ref
+
+    plain_k, sym_k = jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES
+    launches, other = (sym_k, plain_k) if sym else (plain_k, sym_k)
+    if launches == 0 or other != 0 or jump_ref.CALLS != 0:
+        raise SystemExit(f"{what} did not run through its walk kernel "
+                         f"only: plain {plain_k}, symmetry {sym_k}, plain "
+                         f"walk calls {jump_ref.CALLS}")
+    return launches
+
+
+def phase_work(sym, fixture="in64.txt", key=IN64_KEY, n=N_FULL,
+               device="cuda"):
+    """6 / 6s: checkpoint and resume.  A solve of 2 ticks saves its herd
+    and table every tick (save_period 0, -ws); the file's herd must be
+    bit-equal to the snapshot the last save took, -wcheck on the card
+    must re-derive every DP of it, and the CLI's -i load path
+    (KangarooSolver.from_work) must resume it to the key through the
+    walk kernel only, the count continuing from the file's.  -sym: the
+    file has version 1 and a resume without -sym is refused with the
+    JAX package's message.  The plain phase first runs the same 2 ticks
+    without saves, for the saves' cost to the loop."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from kangaroo_torch import cli
+    from kangaroo_torch.core.check import check_work_file
+    from kangaroo_torch.core.config import parse_config_file
+    from kangaroo_torch.core.solver import KangarooSolver, SolverOptions
+    from kangaroo_torch.io import backup
+    from kangaroo_torch.utils.packing import canon_mod_p
+
+    tag = "6s work files, -sym" if sym else "6 work files"
+    fx = str(Path(__file__).resolve().parent / "fixtures" / fixture)
+    run = dict(nb_kangaroo=n, nb_run=0, device=device, quiet=True,
+               symmetry=sym)
+    ref = ""
+    if not sym:
+        r = KangarooSolver(parse_config_file(fx),
+                           SolverOptions(seed=SEED, **run))
+        r.solve(0, max_ticks=2)
+        ref = (f" against {r.stats.time:.4f} s for the same 2 ticks "
+               f"without saves")
+        del r
+    with tempfile.TemporaryDirectory() as td:
+        wf = os.path.join(td, "w.work")
+        _reset_counts()
+        # -wt 60 s: the second tick's save waits for the first's write
+        # (seconds at 2^22 lanes) instead of being skipped
+        s = KangarooSolver(parse_config_file(fx), SolverOptions(
+            seed=SEED, work_file=wf, save_period=0, save_kangaroo=True,
+            save_timeout=60.0, **run))
+        t = time.time()
+        res = s.solve(0, max_ticks=2)
+        wall = time.time() - t
+        launches_save = _read_counts(sym, "the saving solve")
+        st = s.stats
+        if res is not None or st.saves != st.ticks:
+            raise SystemExit(f"{tag}: the 2-tick solve solved, or did not "
+                             f"save at each tick")
+        print(f"[{tag}] {fixture} at {n} lanes, dp {s.dp_size}, nb_run "
+              f"{s.opts.nb_run}: {st.ticks} ticks with a save each, wall "
+              f"{wall:.2f} s (herd {st.herd_time:.2f} s); walk "
+              f"{st.time:.4f} s, of it {st.save_wait:.4f} s waiting for "
+              f"the first save's write and {st.save_stall:.4f} s starting "
+              f"the saves on the solver thread (the first allocates the "
+              f"pinned buffers); walk less the wait "
+              f"{st.time - st.save_wait:.4f} s{ref}; launches "
+              f"{launches_save}", flush=True)
+        # the last save's own buffers: the snapshot that went to the file
+        saved = [b.numpy().astype(np.uint32) for b in s._snap]
+        info = backup.work_info(wf)
+        print(f"[{tag}] -winfo: " + "; ".join(info.splitlines()), flush=True)
+        t = time.time()
+        lw = backup.load_work(wf)
+        load_s = time.time() - t
+        want_version = "Version   : 1" if sym else "Version   : 0"
+        if lw.symmetry != sym or want_version not in info:
+            raise SystemExit(f"{tag}: the file's version is wrong")
+        for name, got, want in zip(("px", "py", "d"), lw.kangaroos,
+                                   (saved[0], canon_mod_p(saved[1]),
+                                    saved[2])):
+            if not np.array_equal(got, want):
+                raise SystemExit(f"{tag}: loaded {name} differs from the "
+                                 f"saved snapshot")
+        # one more snapshot, timed alone: the copy a save puts on the
+        # walk's stream before the next launch
+        t = time.perf_counter()
+        snap, ev = s._snapshot(*s.last_state)
+        if ev is not None:
+            ev.synchronize()
+        copy_s = time.perf_counter() - t
+        snap = [b.numpy() for b in snap]
+        wf2 = os.path.join(td, "w2.work")
+        t = time.time()
+        backup.save_work(wf2, s, *snap, st.count, st.time,
+                         save_kangaroo=True)
+        write_s = time.time() - t
+        size = os.path.getsize(wf2)
+        os.remove(wf2)
+        t = time.time()
+        rep = check_work_file(wf, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        check_s = time.time() - t
+        n_dp = lw.hash_table.n_items()
+        print(f"[{tag}] herd snapshot copy {copy_s:.4f} s "
+              f"({40 * n * 4 / 2 ** 20:.0f} MiB of limbs to pinned host "
+              f"memory on the walk's stream); write {write_s:.2f} s "
+              f"({size} B, {n_dp} DPs, {lw.nb_kangaroo} kangaroos); load "
+              f"{load_s:.2f} s; -wcheck {rep.n_items} DPs, {rep.n_wrong} "
+              f"wrong in {check_s:.2f} s = {rep.n_items / check_s:.0f} "
+              f"DPs/s", flush=True)
+        if rep.n_wrong or rep.n_items != n_dp or n_dp == 0:
+            raise SystemExit(f"{tag}: -wcheck failed")
+        if sym:
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["-nk", str(n), "-device", device, "-i", wf])
+            want = (f"{wf}: work file was saved with -sym; rerun with -sym "
+                    f"to resume it")
+            if rc != -1 or want not in out.getvalue():
+                raise SystemExit(f"{tag}: a resume without -sym was not "
+                                 f"refused: {rc} {out.getvalue()!r}")
+            print(f"[{tag}] a resume without -sym exits {rc}: "
+                  f"{want!r}", flush=True)
+        _reset_counts()
+        t = time.time()
+        s2 = KangarooSolver.from_work(lw, SolverOptions(seed=SEED + 1,
+                                                        **run))
+        res = s2.solve(0)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = _read_counts(sym, "the resumed solve")
+        st2 = s2.stats
+        print(f"[{tag}] resumed with -i: key "
+              f"{hex(res.private_key) if res else None}; wall {wall:.2f} s "
+              f"(restore {st2.herd_time:.2f} s, {st2.ticks} ticks); count "
+              f"2^{math.log2(lw.count):.2f} in the file -> 2^"
+              f"{math.log2(st2.count):.2f}; launches {launches}", flush=True)
+        if res is None or res.private_key != key:
+            raise SystemExit(f"{tag}: the resume did not give the key")
+        if st2.count != lw.count + st2.ticks * n * s2.opts.nb_run:
+            raise SystemExit(f"{tag}: the count did not continue")
+    return launches_save, launches
+
+
+def phase_wsplit(fixture="in64.txt", key=IN64_KEY, n=N_FULL,
+                 device="cuda"):
+    """6w: -wsplit.  3 ticks of the plain solve, a split file per save;
+    merge_dir folds them into one file, which -wcheck re-derives on the
+    card with 0 wrong and whose DP count is the splits' less the dead
+    the merge reports.  A key the merge finds must be the fixture's (the
+    merge then writes no file, and each split is checked instead)."""
+    import glob
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from kangaroo_torch.core.check import check_work_file
+    from kangaroo_torch.core.config import parse_config_file
+    from kangaroo_torch.core.solver import KangarooSolver, SolverOptions
+    from kangaroo_torch.io import backup, merge
+
+    fx = str(Path(__file__).resolve().parent / "fixtures" / fixture)
+    with tempfile.TemporaryDirectory() as td:
+        wdir = os.path.join(td, "splits")
+        os.mkdir(wdir)
+        _reset_counts()
+        s = KangarooSolver(parse_config_file(fx), SolverOptions(
+            nb_kangaroo=n, nb_run=0, seed=SEED, device=device, quiet=True,
+            work_file=os.path.join(wdir, "w.work"), save_period=0,
+            split_work_file=True))
+        t = time.time()
+        res = s.solve(0, max_ticks=3)
+        wall = time.time() - t
+        launches = _read_counts(False, "the -wsplit solve")
+        splits = sorted(glob.glob(os.path.join(wdir, "w.work_*")))
+        counts = [backup.load_work(p, load_kangaroos=False)
+                  .hash_table.n_items() for p in splits]
+        print(f"[6w -wsplit] {fixture} at {n} lanes: {s.stats.ticks} ticks "
+              f"in {wall:.2f} s, key {hex(res.private_key) if res else None};"
+              f" {len(splits)} split files of {counts} DPs; launches "
+              f"{launches}", flush=True)
+        if len(splits) < 2:
+            raise SystemExit("6w: fewer than 2 split files")
+        if res is not None and res.private_key != key:
+            raise SystemExit("6w: the solve gave a wrong key")
+        dest = os.path.join(td, "merged.work")
+        t = time.time()
+        _, mres, dead = merge.merge_dir(wdir, dest)
+        merge_s = time.time() - t
+        if mres is not None:
+            if mres.private_key != key:
+                raise SystemExit("6w: the merge gave a wrong key")
+            checked = [check_work_file(p, device=device) for p in splits]
+            print(f"[6w -wsplit] merge_dir in {merge_s:.2f} s found the key "
+                  f"{hex(mres.private_key)} (no merged file); -wcheck of "
+                  f"each split: {[(r.n_items, r.n_wrong) for r in checked]}",
+                  flush=True)
+            if any(r.n_wrong for r in checked):
+                raise SystemExit("6w: -wcheck failed on a split file")
+            return launches
+        n_dp = backup.load_work(dest, load_kangaroos=False) \
+            .hash_table.n_items()
+        t = time.time()
+        rep = check_work_file(dest, device=device)
+        check_s = time.time() - t
+        print(f"[6w -wsplit] merge_dir in {merge_s:.2f} s: {n_dp} DPs, dead "
+              f"{dead} (splits {sum(counts)}); -wcheck {rep.n_items} DPs, "
+              f"{rep.n_wrong} wrong in {check_s:.2f} s", flush=True)
+        if rep.n_wrong or rep.n_items != n_dp or n_dp != sum(counts) - dead:
+            raise SystemExit("6w: the merged file is wrong")
+    return launches
+
+
 def _sym_state(dev):
     """A 2^22-lane symmetry herd after one symmetry window of the
     kernel, so that its classes hold both values."""
@@ -370,7 +617,7 @@ def _sym_state(dev):
     return state, herd_s
 
 
-def _entry(label, launches, cmp, ms, bound, by):
+def _entry(label, launches, cmp, ms, bound, by, by_path):
     err, p_ms, k_small_ms, n_plain, steps = cmp
     return {
         "name": f"jump_steps_with_dp (walk, {label})",
@@ -387,6 +634,7 @@ def _entry(label, launches, cmp, ms, bound, by):
         "shape": f"{N_FULL} lanes x {NB_FULL} steps",
         "plain_shape": f"{n_plain} lanes x {steps} steps",
         "ms_at_plain_shape": k_small_ms,
+        "launches_by_path": by_path,
     }
 
 
@@ -699,14 +947,21 @@ def main():
           f"plain 2^{math.log2(plain_st.count):.2f} in {plain_st.ticks} "
           f"ticks (one solve each: the count to a key varies run to run)",
           flush=True)
+    w_save, w_resume = phase_work(False)
+    ws_save, ws_resume = phase_work(True)
+    w_split = phase_wsplit()
     torch.cuda.empty_cache()
     cmp_probes = phase_probe_compare(dev)
     probe_rows, probe_counts = phase_probes()
     phase_check()
     kernels = [
-        _entry("plain", launches, cmp_plain, ms, bound, by),
+        _entry("plain", launches, cmp_plain, ms, bound, by, {
+            "5 in56 solve": launches, "6 in64 saving solve": w_save,
+            "6 in64 resume": w_resume, "6w in64 -wsplit solve": w_split}),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
-               sym_by),
+               sym_by, {"5s in64 -sym solve": sym_launches,
+                        "6s in64 -sym saving solve": ws_save,
+                        "6s in64 -sym resume": ws_resume}),
     ] + _probe_entries(probe_rows, probe_counts, cmp_probes)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,12 +1,18 @@
 """Command-line entry point of the PyTorch/CUDA port (standalone solve).
 
 Flag surface of kangaroo_tpu/cli.py restricted to the standalone solve,
-plain or symmetric (-sym), and the self-check (-check); the other flags
-of that CLI exit non-zero with "not yet ported".
+plain or symmetric (-sym), its work files (checkpoint -w/-wi/-ws/-wsplit/
+-wt, resume -i, the tools -wm/-wmdir/-winfo/-wpartcreate/-wcheck) and
+the self-check (-check); the other flags of that CLI (network,
+multi-device, -wss) exit non-zero with "not yet ported".
 
     python -m kangaroo_torch.cli [-d dp] [-nk n] [-nbrun n] [-m maxStep]
-        [-o file] [-dpcost s] [-sym] [-device cuda|cpu] inFile
+        [-o file] [-dpcost s] [-sym] [-device cuda|cpu]
+        [-w file [-wi s] [-ws] [-wsplit] [-wt ms]] [-i file] inFile
     python -m kangaroo_torch.cli [-device cuda|cpu] -check
+    python -m kangaroo_torch.cli [-device cuda|cpu] -wcheck file
+    python -m kangaroo_torch.cli -winfo file | -wm f1 f2 dest |
+        -wmdir dir dest | -wpartcreate dir
 """
 
 from __future__ import annotations
@@ -21,9 +27,7 @@ from .constants import RELEASE
 # Flags of kangaroo_tpu/cli.py that later slices of the port add, with
 # the number of arguments each takes.
 NOT_YET_PORTED = {
-    "-nwin": 1, "-backend": 1, "-platform": 1, "-devices": 1,
-    "-w": 1, "-i": 1, "-wi": 1, "-ws": 0, "-wss": 0, "-wsplit": 0, "-wt": 1,
-    "-wm": 3, "-wmdir": 2, "-winfo": 1, "-wpartcreate": 1, "-wcheck": 1,
+    "-nwin": 1, "-backend": 1, "-platform": 1, "-devices": 1, "-wss": 0,
     "-s": 0, "-c": 1, "-sp": 1, "-nt": 1, "-l": 0,
 }
 
@@ -42,6 +46,18 @@ def print_usage() -> None:
        card is an error)
  -check: Check the kernels and field arithmetic against reference
        implementations on -device (exit 0 when all agree)
+ -w workfile: Specify file to save work into (current processed key only)
+ -i workfile: Specify file to load work from (current processed key only)
+ -wi workInterval: Periodic interval (in seconds) for saving work
+ -ws: Save kangaroos in the work file
+ -wsplit: Split work file of server and reset hashtable
+ -wt timeout: Save work timeout in millisec (default is 3000ms)
+ -wm file1 file2 destfile: Merge work file
+ -wmdir dir destfile: Merge directory of work files
+ -winfo file1: Work file info file
+ -wpartcreate name: Create empty partitioned work file (name is a directory)
+ -wcheck workfile: Check workfile integrity on -device (exit 0 when every
+       DP re-derives)
  -m maxStep: number of operations before give up the search (maxStep*expected operation)
  -o fileName: output result to fileName
  inFile: input configuration file"""
@@ -78,6 +94,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     symmetry = False
     check = False
     in_file = ""
+    work_file = ""
+    load_file = ""
+    save_period = 60
+    save_kangaroo = False
+    wsplit = False
+    save_timeout = 3.0
+    wcheck = ""
 
     i = 0
     while i < len(argv):
@@ -106,6 +129,41 @@ def main(argv: Optional[List[str]] = None) -> int:
             symmetry = True
         elif a == "-check":
             check = True
+        elif a == "-w":
+            i += 1; work_file = _arg(argv, i, a)
+        elif a == "-i":
+            i += 1; load_file = _arg(argv, i, a)
+        elif a == "-wi":
+            i += 1; save_period = int(_arg(argv, i, a))
+        elif a == "-ws":
+            save_kangaroo = True
+        elif a == "-wsplit":
+            wsplit = True
+        elif a == "-wt":
+            i += 1; save_timeout = float(_arg(argv, i, a)) / 1000.0
+        elif a == "-wm":
+            from .io.merge import merge_work
+
+            f1, f2 = _arg(argv, i + 1, a), _arg(argv, i + 2, a)
+            dest = argv[i + 3] if i + 3 < len(argv) else ""
+            return _merged(merge_work(f1, f2, dest))
+        elif a == "-wmdir":
+            from .io.merge import merge_dir
+
+            return _merged(merge_dir(_arg(argv, i + 1, a),
+                                     _arg(argv, i + 2, a)))
+        elif a == "-winfo":
+            from .io.backup import work_info
+
+            print(work_info(_arg(argv, i + 1, a)))
+            return 0
+        elif a == "-wpartcreate":
+            from .io.merge import create_empty_part_work
+
+            create_empty_part_work(_arg(argv, i + 1, a))
+            return 0
+        elif a == "-wcheck":
+            i += 1; wcheck = _arg(argv, i, a)
         elif a in NOT_YET_PORTED:
             print(f"{a}: not yet ported to kangaroo_torch "
                   f"(use python -m kangaroo_tpu.cli)")
@@ -121,7 +179,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .core.check import run_self_check
 
         return 0 if run_self_check(device) else 1
-    if not in_file:
+    if wcheck:
+        from .core.check import check_work_file
+
+        rep = check_work_file(wcheck, device=device)
+        print(f"CheckWorkFile: {rep.n_items} DPs, {rep.n_wrong} wrong")
+        return 0 if rep.ok else 1
+    if not in_file and not load_file:
         print_usage()
         return 2
 
@@ -131,13 +195,29 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if nk <= 0:
         nk = 1 << 22 if device == "cuda" else 1 << 10
-    cfg = parse_config_file(in_file)
     opts = SolverOptions(
         nb_kangaroo=nk, dp_size=dp, nb_run=nb_run, dp_cost=dp_cost,
         max_step=max_step, out_file=out_file, device=device,
-        symmetry=symmetry,
+        symmetry=symmetry, work_file=work_file, save_period=save_period,
+        save_kangaroo=save_kangaroo, split_work_file=wsplit,
+        save_timeout=save_timeout,
     )
-    solver = KangarooSolver(cfg, opts)
+    if load_file:
+        from .core.solver import SymmetryMismatch
+        from .io.backup import load_work
+
+        lw = load_work(load_file)
+        try:
+            solver = KangarooSolver.from_work(lw, opts)
+        except SymmetryMismatch as e:
+            print(f"{load_file}: {e}")
+            return -1
+        cfg = solver.cfg
+        print(f"Loaded: {solver.hash_table.n_items()} DPs, count "
+              f"{solver.offset_count}, {load_file}")
+    else:
+        cfg = parse_config_file(in_file)
+        solver = KangarooSolver(cfg, opts)
     nk = opts.nb_kangaroo
 
     print(f"Kangaroo-Torch {RELEASE}")
@@ -191,6 +271,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         pub = curve.get_public_key_hex(cfg.keys[key_idx], True)
         print(f"Key#{key_idx:2d} [{res.variant}{res.sign_info}]Pub:  0x{pub}")
         print(f"       Priv: 0x{res.private_key:X}")
+    return 0
+
+
+def _merged(res) -> int:
+    """Report a -wm/-wmdir merge that solved the key; exit code 0."""
+    _, solved, _ = res
+    if solved is not None:
+        print("Key# 0 solved during merge")
+        print(f"       Priv: 0x{solved.private_key:X}")
     return 0
 
 

@@ -1,7 +1,16 @@
-"""-check: the solver's self-check, on the card or the CPU.
+"""-wcheck (work-file re-derivation) and -check (the solver's
+self-check), on the card or the CPU.
 
-Counterpart of kangaroo_tpu/core/check.py's run_self_check (:418) and
-its two oracles (reference: Kangaroo::Check, Check.cpp:414-619):
+Counterpart of kangaroo_tpu/core/check.py.  -wcheck (reference:
+CheckWorkFile / CheckPartition, Check.cpp:110-412): for every stored DP,
+recompute dist*G (+keyToSearch when wild) in batches on the device and
+verify that the low 128 bits of x and the bucket index match what the
+file stores (`_derive_x`, `_check_batch`, `check_work_file`,
+`check_partitioned`).  The file's buckets are parsed as numpy columns
+(`io.backup.read_bucket_entries`) and checked about 2^20 at a time.
+
+-check, run_self_check (:418) and its two oracles (reference:
+Kangaroo::Check, Check.cpp:414-619):
 
   * the plain field ops against Python ints, the batched k*G against
     host double-and-add, and the plain walk against a host curve.add
@@ -15,20 +24,20 @@ its two oracles (reference: Kangaroo::Check, Check.cpp:414-619):
     both modes -- on the card the CUDA kernel on one block, on the CPU
     the kernel's g++-built body at the same geometry (the counterpart of
     JAX's interpret mode).
-
-The work-file half (-wcheck: _derive_x, _check_batch, check_work_file,
-check_partitioned) comes with the work-files slice.
 """
 
 from __future__ import annotations
 
+import os
 import random
+from dataclasses import dataclass
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
-from ..constants import N_ORDER, P
+from ..constants import H_PER_PART, HASH_SIZE, MERGE_PART, N_ORDER, P
+from ..io import backup, merge as merge_mod
 from ..ops import ec, field, host_kernel, jump_cuda, jump_ref, probe_cuda
 from ..utils.intutils import ints_to_limbs_fast, limbs_to_ints_fast
 from ..utils.rng import MT19937
@@ -44,6 +53,155 @@ def _limbs(vals, dev) -> torch.Tensor:
 def _ints(t: torch.Tensor) -> List[int]:
     return [int(v) for v in
             limbs_to_ints_fast(t.cpu().numpy().astype(np.uint32))]
+
+
+# DPs re-derived per batch of -wcheck: about a second of the batched
+# k*G on the card, where a 16384-lane batch leaves it launch-bound
+WCHECK_BATCH = 1 << 20
+
+
+@dataclass
+class CheckReport:
+    n_items: int = 0
+    n_wrong: int = 0
+
+    @property
+    def ok(self) -> bool:
+        return self.n_wrong == 0
+
+
+def _derive_x(mag: torch.Tensor, neg: torch.Tensor, wild: torch.Tensor,
+              key_to_search: curve.PointA, windows: int,
+              both_signs: bool = False):
+    """x-coords (16, N) of d*G, or keyToSearch + d*G on wild lanes, for
+    the distances d = mag, or n - mag where neg (the D128 encoding).
+
+    With both_signs, also the x of keyToSearch - d*G on every lane (the
+    -sym walk's other branch); None otherwise.
+    """
+    sx, sy, zero = ec.signed_mult_base(mag, neg, windows)
+    if not bool(wild.any()):
+        return sx, None
+    ax, ay = ec.add_point(sx, sy, zero, key_to_search)
+    x = torch.where(wild[None, :], ax, sx)
+    if not both_signs:
+        return x, None
+    return x, ec.add_point(sx, field.neg_y(sy), zero, key_to_search)[0]
+
+
+def _check_batch(h: np.ndarray, xw: np.ndarray, dw: np.ndarray,
+                 key_to_search: curve.PointA, symmetry: bool = False,
+                 device="cuda") -> np.ndarray:
+    """Re-derive dist*G (+key when wild) on `device`; the (m,) bool mask
+    of records whose stored x or bucket does not match.
+
+    Vectorized counterpart of CheckHash (Check.cpp:33-108).  h (m,)
+    bucket ids, xw (m, 2) and dw (m, 2) the uint64 lo/hi halves of the
+    stored X128 and D128 (file entries or wire records).  In symmetry
+    mode the walk invariant is P = +-key + d*G (the class sign is not
+    stored in the DP record), so a wild DP is valid when its x matches
+    EITHER key + d*G or key - d*G; tame x is sign-invariant already.
+    """
+    dev = resolve_device(str(device))
+    m = len(h)
+    dw = np.asarray(dw, dtype=np.uint64)
+    xw = np.asarray(xw, dtype=np.uint64)
+    # D128: b127 sign (d = n - |d|), b126 type, b125..0 |d|
+    types = ((dw[:, 1] >> np.uint64(62)) & np.uint64(1)).astype(bool)
+    neg = (dw[:, 1] >> np.uint64(63)).astype(bool)
+    mag = np.zeros((16, m), dtype=np.int32)
+    mag[:8] = _u64_limbs(dw[:, 0], dw[:, 1] & np.uint64((1 << 62) - 1))
+    want = np.zeros((10, m), dtype=np.int32)
+    want[:8] = _u64_limbs(xw[:, 0], xw[:, 1])
+    h = np.asarray(h, dtype=np.int64)
+    want[8], want[9] = h & 0xFFFF, h >> 16
+    want = torch.from_numpy(want).to(dev)
+    wild = torch.from_numpy(types).to(dev)
+    x, x2 = _derive_x(torch.from_numpy(mag).to(dev),
+                      torch.from_numpy(neg).to(dev), wild, key_to_search,
+                      ec.windows_for(mag), both_signs=symmetry)
+
+    def matches(x):
+        # low 128 bits and bits 128..145 (the bucket) of x
+        return ((x[:8] == want[:8]).all(0) & (x[8] == want[8])
+                & ((x[9] & 3) == want[9]))
+
+    ok = matches(x)
+    if x2 is not None:
+        ok |= wild & matches(x2)
+    return (~ok).cpu().numpy()
+
+
+def _u64_limbs(lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """(m,) uint64 lo/hi halves -> (8, m) int32 16-bit limbs."""
+    out = np.empty((8, len(lo)), dtype=np.int32)
+    for i in range(4):
+        out[i] = (lo >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+        out[4 + i] = (hi >> np.uint64(16 * i)) & np.uint64(0xFFFF)
+    return out
+
+
+def _key_to_search(hdr) -> curve.PointA:
+    sp = hdr.range_start % N_ORDER
+    if hdr.version == backup.SYM_VERSION:
+        # -sym files recenter the key on the range midpoint (same
+        # translation as KangarooSolver.init_search_key)
+        sp = (sp + ((hdr.range_end - hdr.range_start) >> 1)) % N_ORDER
+    if sp != 0:
+        return curve.add(hdr.key, curve.mul(sp).neg())
+    return hdr.key
+
+
+def _check_regions(hdr, regions, batch: int, device) -> CheckReport:
+    """Check every entry of the bucket regions (path, offset, buckets,
+    first bucket id), batched across regions."""
+    key = _key_to_search(hdr)
+    sym = hdr.version == backup.SYM_VERSION
+    report = CheckReport()
+    pend: list = []
+
+    def flush():
+        if pend:
+            h, x, d = (np.concatenate(c) for c in zip(*pend))
+            report.n_wrong += int(_check_batch(h, x, d, key, sym,
+                                               device).sum())
+            report.n_items += len(h)
+            pend.clear()
+
+    for path, off, n_buckets, h_base in regions:
+        for cols in backup.read_bucket_entries(path, off, n_buckets, batch,
+                                               h_base):
+            pend.append(cols)
+            if sum(len(c[0]) for c in pend) >= batch:
+                flush()
+    flush()
+    return report
+
+
+def check_work_file(path: str, batch: int = WCHECK_BATCH,
+                    device="cuda") -> CheckReport:
+    """-wcheck on a plain work file or a 256-partition directory, on
+    `device` (the card unless the caller asks for the CPU)."""
+    resolve_device(str(device))
+    if os.path.isdir(path):
+        return check_partitioned(path, batch, device)
+    with open(path, "rb") as f:
+        hdr = merge_mod.read_work_header(f, path)
+    return _check_regions(
+        hdr, [(path, backup.HEADW_HEADER_SIZE, HASH_SIZE, 0)], batch,
+        device)
+
+
+def check_partitioned(directory: str, batch: int = WCHECK_BATCH,
+                      device="cuda") -> CheckReport:
+    """-wcheck on a partitioned work dir (reference: CheckPartition)."""
+    resolve_device(str(device))
+    header = os.path.join(directory, "header")
+    with open(header, "rb") as f:
+        hdr = merge_mod.read_work_header(f, header)
+    return _check_regions(
+        hdr, [(merge_mod.part_name(directory, p), 0, H_PER_PART,
+               p * H_PER_PART) for p in range(MERGE_PART)], batch, device)
 
 
 def structured_field_values() -> List[int]:

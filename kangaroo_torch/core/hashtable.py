@@ -10,18 +10,43 @@ HashTable.cpp:75-100):
 
 The table itself is native C++ (`native/merge_core.cpp`): 2^18 buckets
 of sorted 32-byte entries with the reference's Add semantics
-(HashTable.cpp:262-307), taking whole drained batches in one call.
+(HashTable.cpp:262-307), taking whole drained batches in one call and
+writing and reading the work-file bucket region natively.  The port has
+no counterpart of the JAX package's dict table (`HashTable`, its
+fallback when no C++ compiler is found): g++ is a requirement of the
+port, which builds this library at first use and raises if it cannot.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Iterator, Tuple
 
-from ..constants import N_ORDER
+import numpy as np
 
+from ..constants import HASH_MASK, HASH_SIZE, N_ORDER
+
+_MASK128 = (1 << 128) - 1
 _MASK126 = (1 << 126) - 1
+
+
+def convert(x: int, d_modn: int, ktype: int) -> Tuple[int, int, int]:
+    """(x, mod-n distance, type) -> (bucket h, X128, D128).
+
+    Reference: HashTable::Convert (HashTable.cpp:75-100).
+    """
+    h = (x >> 128) & HASH_MASK
+    x128 = x & _MASK128
+    sign = 0
+    if (d_modn >> 255) & 1:
+        # "negative" distance: store n - d with the sign bit
+        mag = (N_ORDER - d_modn) & _MASK128
+        sign = 1 << 127
+    else:
+        mag = d_modn & _MASK128
+    d128 = (mag & _MASK126) | sign | (ktype & 1) << 126
+    return h, x128, d128
 
 
 def calc_dist_and_type(d128: int) -> Tuple[int, int]:
@@ -129,3 +154,74 @@ class NativeHashTable:
         if k != n:
             raise RuntimeError(f"native export returned {k} of {n} records")
         return bytes(buf)
+
+    def export_arrays(self):
+        """All entries in file order as numpy columns (h, xlo, xhi,
+        dlo, dhi): the u32/u64 halves of the 36-byte export records."""
+        a = np.frombuffer(self.export(), dtype=np.uint8).reshape(-1, 36)
+        h = a[:, 0:4].copy().view("<u4").ravel()
+        x = a[:, 4:20].copy().view("<u8")    # (n, 2) lo/hi
+        dd = a[:, 20:36].copy().view("<u8")  # (n, 2) lo/hi
+        return h, x[:, 0], x[:, 1], dd[:, 0], dd[:, 1]
+
+    def iter_sorted(self) -> Iterator[Tuple[int, int, int]]:
+        """Yield (h, X128, D128) in file order (bucket asc, X asc)."""
+        h, xlo, xhi, dlo, dhi = self.export_arrays()
+        x = (xhi.astype(object) << 64) | xlo
+        d = (dhi.astype(object) << 64) | dlo
+        for i in range(len(h)):
+            yield int(h[i]), int(x[i]), int(d[i])
+
+    def absorb(self, other: "NativeHashTable") -> None:
+        """Insert every entry of another table, in its file order."""
+        raw = other.export()
+        self.add_batch_raw(raw, len(raw) // 36)
+
+    def stats(self):
+        """(n_items, min, max, avg) bucket sizes; min and max over the
+        non-empty buckets, avg over all HASH_SIZE."""
+        nb = (ctypes.c_uint32 * HASH_SIZE)()
+        with self._mu:
+            total = int(self._lib.kt_ht_stats(self._h, nb))
+        if total <= 0:
+            return 0, 0, 0, 0.0
+        arr = np.frombuffer(nb, dtype=np.uint32)
+        nz = arr[arr > 0]
+        return total, int(nz.min()), int(nz.max()), total / HASH_SIZE
+
+    #: buckets serialized per hold of the table lock in write_region: a
+    #: drain that runs while a background save writes waits for at most
+    #: one span (1/32 of the table), never for the whole file (a fuzzy
+    #: snapshot; -wsplit freezes the table first, so its files are exact)
+    WRITE_SPAN = 1 << 13
+
+    def write_region(self, path: str, off: int, merge_style: bool = False
+                     ) -> int:
+        """Write the HEADW bucket region at byte `off` of `path`, span by
+        span; maxItem as the reference solver (merge_style False) or
+        merge (True) leaves it.  Returns the bytes written."""
+        style = 1 if merge_style else 0
+        total = 0
+        for hb0 in range(0, HASH_SIZE, self.WRITE_SPAN):
+            hb1 = min(hb0 + self.WRITE_SPAN, HASH_SIZE)
+            with self._mu:
+                w = self._lib.kt_ht_write_span(
+                    self._h, path.encode(), off + total, style, hb0, hb1)
+            if w < 0:
+                raise IOError(f"native table write failed: {path}")
+            total += int(w)
+        return total
+
+    def read_region(self, path: str, off: int) -> int:
+        """Replace the contents by the HEADW bucket region at byte `off`
+        of `path`; returns the bytes consumed."""
+        with self._mu:
+            r = self._lib.kt_ht_read(self._h, path.encode(), off)
+        if r < 0:
+            raise IOError(f"native table read failed: {path}")
+        return int(r)
+
+
+def make_hash_table() -> NativeHashTable:
+    """A new, empty DP table (always the native one in the port)."""
+    return NativeHashTable()

@@ -19,6 +19,10 @@ and each start is normalized into its class {P, -P}: a lane whose y >
 (p-1)/2 takes p - y and the negated distance.
 
 For a given MT19937 stream the herd is bit-equal to the JAX package's.
+The conversions between device and mod-n distances (the JAX herd's
+device_distance and true_distance) are vectorized over lanes in
+`utils.packing` (device_dist_limbs, true_dist_limbs), where the work
+files use them.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import torch
 
 from ..constants import WILD
 from ..utils import rng as rng_mod
-from ..utils.intutils import int_to_limbs
 from . import curve
 
 _W32 = 0xFFFFFFFF
@@ -89,29 +92,19 @@ def _positions(ks: torch.Tensor, windows: int, neg: torch.Tensor,
 
     ks holds |d| (d or n - d, whichever is smaller), so the scalar
     multiply runs over the `windows` bytes the range needs instead of
-    all 32; lanes with d > n/2 negate y, since (n - m)*G = -(m*G).  The
-    points are exact, so they equal the JAX package's 32-window d*G.
+    all 32 (ec.signed_mult_base).  The points are exact, so they equal
+    the JAX package's 32-window d*G.
     """
-    from ..constants import P
-    from ..ops import ec, field
+    from ..ops import ec
 
-    n = ks.shape[1]
-    sx, sy, _ = ec.scalar_mult_base_batch(ks, windows)
-    p_limbs = torch.from_numpy(int_to_limbs(P).astype(np.int32))
-    p_limbs = p_limbs.to(ks.device)[:, None].expand(-1, n)
-    sy = torch.where(neg[None, :],
-                     field.canonicalize(field.submod(p_limbs, sy)), sy)
+    sx, sy, _ = ec.signed_mult_base(ks, neg, windows)
     if key_point is None:
         return sx, sy
-    kx = torch.from_numpy(int_to_limbs(key_point.x).astype(np.int32))
-    ky = torch.from_numpy(int_to_limbs(key_point.y).astype(np.int32))
-    kx = kx.to(ks.device)[:, None].expand(-1, n)
-    ky = ky.to(ks.device)[:, None].expand(-1, n)
-    # acc_zero all False: a degenerate d == 0 lane runs the plain
-    # formula against (0,0), like the reference's vector AddDirect,
-    # which only special-cases p1 == 0 (SECP256K1.cpp:296-298)
-    none = torch.zeros((n,), dtype=torch.bool, device=ks.device)
-    ax, ay, _ = ec.affine_add_batch_masked(sx, sy, none, kx, ky, none)
+    # p_zero all False: a degenerate d == 0 lane runs the plain formula
+    # against (0,0), like the reference's vector AddDirect, which only
+    # special-cases p1 == 0 (SECP256K1.cpp:296-298)
+    none = torch.zeros((ks.shape[1],), dtype=torch.bool, device=ks.device)
+    ax, ay = ec.add_point(sx, sy, none, key_point)
     wm = wild_mask[None, :]
     return torch.where(wm, ax, sx), torch.where(wm, ay, sy)
 
@@ -143,10 +136,11 @@ def herd_from_draws(
     # |d| with d the mod-n start distance: r, or |r - off| on wild lanes
     neg = wild & below
     mag = np.where(wild[:, None], np.where(below[:, None], under, above), r)
-    top = max([i for i in range(4) if mag[:, i].any()], default=0)
-    bits = 32 * top + int(mag[:, top].max()).bit_length()
-    windows = max(1, -(-bits // 8))
-    ks = torch.from_numpy(_limbs(mag, 16)).to(device)
+    from ..ops import ec
+
+    ks = _limbs(mag, 16)
+    windows = ec.windows_for(ks)
+    ks = torch.from_numpy(ks).to(device)
     if key_point is not None and key_point.is_zero:
         # keyToSearch is the identity (the key IS rangeStart*G): wild
         # positions degenerate to d*G, same as tame

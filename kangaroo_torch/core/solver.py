@@ -8,11 +8,18 @@ copied to the host in one read, inserted into the native hash table,
 and collisions are resolved exactly like the reference.  The symmetry
 walk (`-sym`) carries each lane's class beside the herd, signed device
 distances and a key recentred on the middle of the range.
+
+Work files (-w/-wi/-ws/-wsplit/-wt, -i): a solve checkpoints its table,
+count, time and optionally its herd in the background (`_save_work`),
+and resumes from a loaded file (`from_work`) or, on a repeated solve()
+of the same key, from where the last one stopped, keeping the table and
+the count (reference: SaveWork / LoadWork, Backup.cpp:149-207,449-572).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 import time
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -21,11 +28,12 @@ import numpy as np
 import torch
 
 from ..constants import HASH_SIZE, N_ORDER, TAME
+from ..io import backup
 from ..utils import rng as rng_mod
 from . import curve, herd as herd_mod
 from .collision import collision_check
 from .config import ProblemConfig
-from .hashtable import NativeHashTable, calc_dist_and_type
+from .hashtable import calc_dist_and_type, make_hash_table
 from .jumptable import create_jump_table
 
 
@@ -41,19 +49,30 @@ class SolverOptions:
     quiet: bool = False
     device: str = "cuda"           # "cuda" or "cpu"
     symmetry: bool = False         # -sym: walk classes {P, -P}
+    # checkpointing (reference -w / -wi / -ws / -wsplit / -wt)
+    work_file: str = ""
+    save_period: int = 60          # seconds between saves
+    save_kangaroo: bool = False    # -ws: the herd goes into the file too
+    split_work_file: bool = False  # -wsplit: each save writes a new file
+    # -wt: seconds to wait for a still-running background save before
+    # skipping this interval (reference wtimeout, default 3000 ms)
+    save_timeout: float = 3.0
 
 
 @dataclass
 class SolveStats:
-    count: int = 0
+    count: int = 0             # jumps, a loaded file's count included
     dead: int = 0
-    time: float = 0.0          # walk loop wall time (s)
-    herd_time: float = 0.0     # herd creation wall time (s)
+    time: float = 0.0          # walk wall time (s), a loaded file's included
+    herd_time: float = 0.0     # herd creation (or restore) wall time (s)
     ticks: int = 0
     expected_ops: float = 0.0
     # DP hits beyond the per-lane capture slots of a launch window
     # (reference warns on its bounded output ring, GPUEngine.cu:641-648)
     lost: int = 0
+    saves: int = 0             # background saves started
+    save_stall: float = 0.0    # solver-thread seconds spent starting them
+    save_wait: float = 0.0     # ... and waiting for a save still running
 
 
 # Per-lane DP capture slots are bounded; beyond this many the launch
@@ -106,6 +125,10 @@ def slots_for_window(nb_run: int, dp_size: int, n_lanes: int,
     return s + (s & 1)
 
 
+class SymmetryMismatch(ValueError):
+    """A work file resumed with the other -sym setting."""
+
+
 def resolve_device(name: str) -> torch.device:
     """The device an entry point runs on; cuda without a card raises."""
     dev = torch.device(name)
@@ -137,10 +160,23 @@ class KangarooSolver:
             if not opts.quiet:
                 print(f"Warning: -nk {nk} rounded up to {opts.nb_kangaroo} "
                       f"(herd lanes snap to multiples of {q})")
-        self.hash_table = NativeHashTable()
+        self.hash_table = make_hash_table()
         self.stats = SolveStats()
         self.key_idx = 0
         self._lost_warned = False
+        # resume state: a loaded file's count and time, its herd, and
+        # `resumed`, which keeps the loaded table through the next
+        # solve() (reference: LoadWork then Run keeps the table)
+        self.offset_count = 0
+        self.offset_time = 0.0
+        self.loaded_kangaroos = None
+        self.resumed = False
+        # (px, py, d) where the last solve() stopped, and its key
+        self.last_state = None
+        self._active_key_idx = None
+        self._save_thread = None
+        self._save_error = None
+        self._snap = None  # host buffers of the herd snapshot, reused
         self.range_start = cfg.range_start
         self.range_end = cfg.range_end
         self.range_width = self.range_end - self.range_start
@@ -206,11 +242,40 @@ class KangarooSolver:
                 best, best_t = dp, t
         return best
 
+    @classmethod
+    def from_work(cls, lw: "backup.LoadedWork", opts: SolverOptions
+                  ) -> "KangarooSolver":
+        """A solver that resumes a loaded work file: its range and key,
+        table, count, time and herd (the -i load path; reference:
+        LoadWork before Run, Backup.cpp:149-207).  The file's DP size
+        applies unless opts sets one.  Raises SymmetryMismatch when the
+        file and opts disagree on -sym."""
+        if lw.symmetry != opts.symmetry:
+            w = "with" if lw.symmetry else "without"
+            raise SymmetryMismatch(f"work file was saved {w} -sym; rerun "
+                                   f"{w} -sym to resume it")
+        if opts.dp_size < 0:
+            opts.dp_size = lw.dp_size
+        solver = cls(ProblemConfig(lw.range_start, lw.range_end, [lw.key]),
+                     opts)
+        solver.hash_table = lw.hash_table
+        solver.offset_count = lw.count
+        solver.offset_time = lw.time
+        solver.resumed = True
+        solver.loaded_kangaroos = lw.kangaroos
+        return solver
+
     # -- main loop ------------------------------------------------------
     def solve(self, key_idx: int = 0, progress: Optional[Callable] = None,
               max_ticks: Optional[int] = None):
         """Solve one key.  Returns a SolveResult, or None when stopped
-        by max_ticks or max_step."""
+        by max_ticks or max_step.
+
+        A repeated solve() of the same key keeps the table, the count
+        and the time and continues the walk from last_state; so does
+        the first solve() after from_work, from the loaded herd.  A new
+        key starts afresh (reference: hashTable.Reset between keys,
+        Kangaroo.cpp:1054-1056)."""
         from ..ops import jump_cuda, jump_ref
 
         opts = self.opts
@@ -249,7 +314,16 @@ class KangarooSolver:
                       f"(expected ~{exp_loss:.2g} lost DPs per launch "
                       f"window); lower -nbrun or raise -d to eliminate loss")
         self.n_slots = n_slots
-        self.stats = SolveStats()
+        same_key = self._active_key_idx == key_idx
+        if not self.resumed and not same_key:
+            self.hash_table.reset()
+            self.offset_count = 0
+            self.offset_time = 0.0
+            self.stats = SolveStats()
+        self.resumed = False
+        self._active_key_idx = key_idx
+        if same_key and self.loaded_kangaroos is None:
+            self.loaded_kangaroos = self.last_state
         self.stats.expected_ops, _, _ = self.compute_expected(
             float(dp_size), opts.nb_kangaroo)
         dp_masks = jump_ref.dp_limb_masks(dp_size, dev)
@@ -259,16 +333,20 @@ class KangarooSolver:
         )
         n = opts.nb_kangaroo
         nb_run = opts.nb_run
-        self.hash_table.reset()
         if dev.type == "cuda":
             jump_cuda.load()  # an nvcc build belongs to set-up, not the walk
 
         t_herd = time.time()
-        px, py, d = herd_mod.create_herd(
-            n, self.range_power, self.width_div2, self.key_to_search, TAME,
-            rng, device=dev, symmetry=sym,
-        )
-        # each lane's class; the herd starts normalized, in class 0
+        if self.loaded_kangaroos is not None:
+            px, py, d = self._restore_herd(self.loaded_kangaroos, rng)
+            self.loaded_kangaroos = None
+        else:
+            px, py, d = herd_mod.create_herd(
+                n, self.range_power, self.width_div2, self.key_to_search,
+                TAME, rng, device=dev, symmetry=sym,
+            )
+        # each lane's class; a new or restored herd starts normalized, in
+        # class 0 (the reference's restore reallocates symClass zeroed)
         symclass = (torch.zeros((n,), dtype=torch.int32, device=dev)
                     if sym else None)
         if dev.type == "cuda":
@@ -405,8 +483,10 @@ class KangarooSolver:
         # of slack as the reference's asynchronous GPU readback
         # (GPUEngine.cu:607-677).
         pending = None
+        self.stats.count = self.offset_count
         t0 = time.time()
         last_status = t0
+        last_save = t0
         tick = 0
         stop = False
         while result is None and not stop:
@@ -432,6 +512,12 @@ class KangarooSolver:
             if progress is not None and now - last_status > 2.0:
                 progress(self, now - t0)
                 last_status = now
+            if (opts.work_file and result is None
+                    and now - last_save > opts.save_period):
+                # tick T's herd (after T-1's resets), the DPs up to T-1
+                # and tick T in the count, as the JAX solver saves
+                self._save_work(px, py, d, now - t0)
+                last_save = now
         if result is None and pending is not None:
             drain(compact(*pending))
         if dev.type == "cuda":
@@ -439,10 +525,130 @@ class KangarooSolver:
             # that count / time is the rate of work actually done
             torch.cuda.synchronize(dev)
         self.stats.ticks = tick
-        self.stats.time = time.time() - t0
+        self.stats.time = self.offset_time + time.time() - t0
+        self.last_state = (px, py, d)
+        # a repeated solve() on this key continues from here
+        self.offset_count = self.stats.count
+        self.offset_time = self.stats.time
+        self.finish_save()
         if result is not None and opts.out_file:
             self._output(result)
         return result
+
+    def _restore_herd(self, state, rng):
+        """A loaded or continued herd (px, py, d), numpy or tensors, on
+        the solver's device, reconciled with -nk (reference:
+        FectchKangaroos fills a shortfall with fresh kangaroos and warns
+        about a surplus, Backup.cpp:283-287): a surplus is cut at the
+        tail, a shortfall filled at the tail by create_herd with
+        first_type = the restored count's parity, so lane parity stays
+        the kangaroo type."""
+        opts = self.opts
+        px, py, d = (torch.as_tensor(np.asarray(a, dtype=np.int32))
+                     if not isinstance(a, torch.Tensor) else a
+                     for a in state)
+        px, py, d = (t.to(self.device, torch.int32) for t in (px, py, d))
+        nl, n = px.shape[1], opts.nb_kangaroo
+        if nl > n:
+            if not opts.quiet:
+                print(f"Warning: {nl - n} unhandled kangaroos! "
+                      f"(-nk {n} < {nl} restored)")
+            px, py, d = px[:, :n], py[:, :n], d[:, :n]
+        elif nl < n:
+            fx, fy, fd = herd_mod.create_herd(
+                n - nl, self.range_power, self.width_div2,
+                self.key_to_search, nl % 2, rng, device=self.device,
+                symmetry=opts.symmetry,
+            )
+            px, py, d = (torch.cat(p, dim=1)
+                         for p in ((px, fx), (py, fy), (d, fd)))
+        return tuple(t.contiguous() for t in (px, py, d))
+
+    def _snapshot(self, px, py, d):
+        """Copy the herd into host buffers allocated once (pinned on the
+        card) on the walk's stream, right after this tick's launch and
+        its resets and before the next launch, which walks the herd in
+        place.  Returns the buffers and the event a reader waits on
+        (None on the CPU, where the copy is synchronous)."""
+        cuda = px.device.type == "cuda"
+        if self._snap is None or self._snap[0].shape != px.shape:
+            self._snap = tuple(
+                torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+                for t in (px, py, d))
+        for buf, t in zip(self._snap, (px, py, d)):
+            buf.copy_(t, non_blocking=cuda)
+        if not cuda:
+            return self._snap, None
+        ev = torch.cuda.Event()
+        ev.record()
+        return self._snap, ev
+
+    def _save_work(self, px, py, d, elapsed):
+        """Checkpoint without stalling the walk.
+
+        The solver thread copies the herd into host buffers on the
+        walk's stream (only with -ws), swaps in a fresh table for
+        -wsplit, and starts a writer thread; the writer waits for the
+        copy, packs the herd and writes the table span by span (a drain
+        meanwhile waits for one span at most: a fuzzy snapshot, exact
+        with -wsplit, whose table is frozen).  The reference instead
+        pauses all workers for the whole write (Backup.cpp:449-472); -wt
+        bounds the wait for a save that is still running, after which
+        this interval's save is skipped.
+        """
+        prev = self._save_thread
+        if prev is not None and prev.is_alive():
+            t0 = time.perf_counter()
+            prev.join(timeout=self.opts.save_timeout)
+            self.stats.save_wait += time.perf_counter() - t0
+            if prev.is_alive():
+                if not self.opts.quiet:
+                    print("\nSaveWork timeout !")
+                return
+        self._raise_save_error()
+        t0 = time.perf_counter()
+        snap, ev = (self._snapshot(px, py, d) if self.opts.save_kangaroo
+                    else (None, None))
+        count = self.stats.count
+        total_time = self.offset_time + elapsed
+        table = self.hash_table
+        name = self.opts.work_file
+        if self.opts.split_work_file:
+            # -wsplit: swap in a fresh table now (solver thread) and
+            # write the frozen one; offline merge recovers cross-file
+            # collisions.  Files are timestamped like the reference's.
+            self.hash_table = make_hash_table()
+            name = backup.split_file_name(name)
+
+        def write():
+            try:
+                if ev is not None:
+                    ev.synchronize()
+                herd = ((None,) * 3 if snap is None
+                        else tuple(b.numpy() for b in snap))
+                backup.save_work(name, self, *herd, count, total_time,
+                                 save_kangaroo=snap is not None,
+                                 table=table)
+            except BaseException as e:  # raised by the solver thread
+                self._save_error = e
+
+        self._save_thread = threading.Thread(target=write, daemon=True)
+        self._save_thread.start()
+        self.stats.saves += 1
+        self.stats.save_stall += time.perf_counter() - t0
+
+    def _raise_save_error(self):
+        err, self._save_error = self._save_error, None
+        if err is not None:
+            raise RuntimeError("background work-file save failed") from err
+
+    def finish_save(self):
+        """Join an in-flight background save (end of solve, tests) and
+        raise its error, if it failed."""
+        t = self._save_thread
+        if t is not None:
+            t.join()
+        self._raise_save_error()
 
     def _reset_lanes(self, px, py, d, symclass, lanes, rng):
         """Dead kangaroos draw fresh ones (Kangaroo.cpp:467-471).

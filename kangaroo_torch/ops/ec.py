@@ -42,7 +42,7 @@ def affine_add_batch_masked(
     dx = field.submod(qx, accx)
     one = torch.zeros_like(dx)
     one[0] = 1
-    inv = field.batch_inv(torch.where(active[None, :], dx, one))
+    inv = _batch_inv(torch.where(active[None, :], dx, one))
     dy = field.submod(qy, accy)
     lam = field.mulmod(dy, inv)
     x3 = field.canonicalize(field.submod(field.sqrmod(lam, sub=(accx,)), qx))
@@ -54,6 +54,23 @@ def affine_add_batch_masked(
     outy = torch.where(acc_zero[None, :], qy,
                        torch.where(q_zero[None, :], accy, y3))
     return outx, outy, acc_zero & q_zero
+
+
+def _batch_inv(a: torch.Tensor) -> torch.Tensor:
+    """field.batch_inv of any lane count: the lanes are padded with ones
+    to a width whose fold tree ends at 64 lanes or fewer, since its root
+    is inverted on the host lane by lane (an odd-width batch of DPs to
+    check would otherwise invert every lane in Python).  A width that
+    folds that far already, such as a herd's power of two, is not
+    padded."""
+    n = a.shape[1]
+    k = max(0, (n - 1).bit_length() - 6)
+    m = -(-n // (1 << k)) << k
+    if m == n:
+        return field.batch_inv(a)
+    pad = torch.zeros((a.shape[0], m - n), dtype=a.dtype, device=a.device)
+    pad[0] = 1
+    return field.batch_inv(torch.cat([a, pad], dim=1))[:, :n]
 
 
 @lru_cache(maxsize=1)
@@ -98,3 +115,44 @@ def scalar_mult_base_batch(ks: torch.Tensor, windows: int = 32):
             b == 0,
         )
     return accx, accy, acc_zero
+
+
+def windows_for(mag: np.ndarray) -> int:
+    """Byte windows of scalar_mult_base_batch that cover every column of
+    the (L, N) 16-bit limb array mag (at least one)."""
+    rows = np.flatnonzero(np.asarray(mag).any(axis=1))
+    if not len(rows):
+        return 1
+    top = int(rows[-1])
+    bits = 16 * top + int(np.asarray(mag[top]).max()).bit_length()
+    return max(1, -(-bits // 8))
+
+
+def signed_mult_base(mag: torch.Tensor, neg: torch.Tensor, windows: int):
+    """k*G for k = mag, or k = n - mag on lanes where neg: since
+    (n - m)*G = -(m*G), the multiply runs over the `windows` bytes of
+    the magnitude and neg lanes take p - y.  mag: int32 (16, N) limbs
+    below 2^(8 * windows); neg: (N,) bool.  Returns (x, y, is_zero),
+    canonical: the same values as the 32-window multiply of k mod n.  A
+    k = 0 lane (the identity, which has no affine coordinates) carries
+    what that multiply leaves there, the last window's first entry
+    2^248*G, as in the JAX package."""
+    sx, sy, zero = scalar_mult_base_batch(mag, windows)
+    # every y here lies in (0, p): no point of order 2 on secp256k1
+    sy = torch.where(neg[None, :], field.neg_y(sy), sy)
+    last = torch.from_numpy(_gtable_np()[31, :, :, 0]).to(mag.device)
+    z = zero[None, :]
+    return (torch.where(z, last[0][:, None], sx),
+            torch.where(z, last[1][:, None], sy), zero)
+
+
+def add_point(px: torch.Tensor, py: torch.Tensor, p_zero: torch.Tensor,
+              q: curve.PointA):
+    """q + P lane-wise for one fixed affine point q (a lane whose
+    p_zero is set gives q itself).  Returns canonical (x, y)."""
+    n = px.shape[1]
+    qx, qy = (torch.from_numpy(int_to_limbs(v).astype(np.int32))
+              .to(px.device)[:, None].expand(-1, n) for v in (q.x, q.y))
+    none = torch.zeros((n,), dtype=torch.bool, device=px.device)
+    x, y, _ = affine_add_batch_masked(px, py, p_zero, qx, qy, none)
+    return x, y

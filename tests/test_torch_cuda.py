@@ -1,5 +1,6 @@
 """The CUDA walk kernel and the probe kernels against their plain
-versions, on the card.
+versions, on the card, and the work files' save, resume and -wcheck
+there.
 
 Needs a CUDA card (the kernel has no CPU mode) and skips without one.
 Imports only the port, so it runs on a machine without JAX:
@@ -226,3 +227,48 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
         probe_cuda.raw_chain("u32_add", z[0].contiguous(), 1, ilp=3)
     with pytest.raises(ValueError, match="G = 100"):
         probe_cuda.inv_chain("cur", z, 1, group=100)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_checkpoint_resume_and_wcheck_on_card(card, tmp_path, symmetry):
+    """Work files on the card at one lane quantum: a solve saves its
+    herd every tick, stops; the file's herd is the snapshot the save
+    took, -wcheck re-derives every DP with 0 wrong, and the resumed
+    solve reaches the key through its walk kernel only, its count
+    continuing from the file's."""
+    from kangaroo_torch.core.check import check_work_file
+    from kangaroo_torch.core.config import ProblemConfig
+    from kangaroo_torch.core.solver import KangarooSolver, SolverOptions
+    from kangaroo_torch.io import backup
+    from kangaroo_torch.utils.packing import canon_mod_p
+
+    # a 44-bit range: about 16 ticks of 2^19 jumps to the key
+    start = 0x7A000000000000
+    key = start + 0x9C5A9E21B37
+    cfg = ProblemConfig(start, start + (1 << 44) - 1, [curve.mul(key)])
+    wf = str(tmp_path / "w.work")
+    n = jump_cuda.LANE_QUANTUM
+    run = dict(nb_kangaroo=n, dp_size=6, nb_run=64, device="cuda",
+               quiet=True, symmetry=symmetry)
+    s = KangarooSolver(cfg, SolverOptions(
+        seed=7, work_file=wf, save_period=0, save_kangaroo=True, **run))
+    assert s.solve(0, max_ticks=3) is None
+    lw = backup.load_work(wf)
+    assert lw.symmetry == symmetry and lw.nb_kangaroo == n
+    snap = [t.numpy().astype(np.uint32) for t in s._snap]
+    np.testing.assert_array_equal(lw.kangaroos[0], snap[0])
+    np.testing.assert_array_equal(lw.kangaroos[1], canon_mod_p(snap[1]))
+    np.testing.assert_array_equal(lw.kangaroos[2], snap[2])
+    rep = check_work_file(wf, device="cuda")
+    assert rep.n_items == lw.hash_table.n_items() > 0 and rep.n_wrong == 0
+    s2 = KangarooSolver.from_work(lw, SolverOptions(seed=8, **run))
+    launches = (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES, jump_ref.CALLS)
+    res = s2.solve(0)
+    assert res is not None and res.private_key == key
+    assert s2.stats.count == lw.count + s2.stats.ticks * n * 64
+    plain, sym, calls = (a - b for a, b in zip(
+        (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES, jump_ref.CALLS),
+        launches))
+    assert calls == 0 and (sym if symmetry else plain) == s2.stats.ticks
+    assert (plain if symmetry else sym) == 0

@@ -148,7 +148,7 @@ def test_cli_solves_in32_sym_on_cpu():
 
 
 def test_cli_rejects_flags_not_yet_ported():
-    for flag in ("-wi", "-w", "-wcheck", "-s"):
+    for flag in ("-wss", "-nwin", "-c", "-s"):
         r = _cli(flag, "x", IN32, timeout=120)
         assert r.returncode != 0
         assert "not yet ported" in r.stdout
