@@ -65,13 +65,33 @@ Phases:
      default shapes, launch counts read around them;
   8. check: -check (run_self_check) on the card, launch counts read
      around it;
-  9. the kernels line, the card line and the result line.
+  9. network: the CLI's DP server (-s -d 14 -sp 0, in64) in a process
+     of its own, and a CLI client (-c, 2^22 lanes) in this one, over
+     loopback: the key the server prints is the fixture's, the client's
+     walk ran through the plain kernel only; the wall, ticks, jumps, the
+     loop's rate beside phase 5s's, the DPs sent and the solver
+     thread's seconds in the sink per tick (median, max);
+  9s. the same with -sym on both sides, through the symmetry kernel only;
+  9w. -wss: a client at 2^22 lanes saves its herd through the server at
+     every tick (-w -wi 0 -wss) and stops after 2 ticks; the herd that
+     the server's HEADKS file rebuilds on the card is bit-equal to the
+     snapshot sent (px, canonical py, d); a second client restores it
+     from the server and runs to the key; the client's pack and send,
+     the server's checksum and write, the load and the rebuild timed;
+  9v. validated ingest: an in-process server (validate_points, on the
+     card) takes 2^20 of the DPs sent in 9 and 9w from 4 connections at
+     once, 1 % of them forged (x ^ 1): rejected must be exactly the
+     forged count, the table must hold the rest; DPs/s;
+  10. the kernels line, the card line and the result line.
 """
 
+import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -601,6 +621,290 @@ def phase_wsplit(fixture="in64.txt", key=IN64_KEY, n=N_FULL,
     return launches
 
 
+@contextlib.contextmanager
+def _cli_server(args, cwd, timeout=300):
+    """The port's CLI server (-s -sp 0 args) in a process of its own, in
+    cwd; yields (port, its output lines so far), and stops the process
+    on the way out."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "kangaroo_torch.cli", "-s", "-sp", "0",
+         *args], cwd=cwd, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    reader = threading.Thread(
+        target=lambda: lines.extend(ln.rstrip("\n") for ln in proc.stdout),
+        daemon=True)
+    reader.start()
+    try:
+        deadline = time.time() + 120
+        port = None
+        while port is None and time.time() < deadline:
+            hit = [ln for ln in list(lines) if "listening on port" in ln]
+            if hit:
+                port = int(hit[0].split("listening on port")[1].split()[0])
+            elif proc.poll() is not None:
+                break
+            else:
+                time.sleep(0.05)
+        if port is None:
+            raise SystemExit(f"the CLI server did not start: {lines}")
+        yield port, lines
+        proc.wait(timeout=timeout)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def _server_key(lines):
+    keys = [ln.split("Priv:")[1].strip() for ln in lines if "Priv:" in ln]
+    return int(keys[-1], 16) if keys else None
+
+
+@contextlib.contextmanager
+def _client_reports(sent=None):
+    """Collect the report of every run_client call (the CLI's too) and,
+    when `sent` is a list, the payload of every SENDDP delivered."""
+    from kangaroo_torch.net import client
+
+    reports = []
+    real_run = client.run_client
+    real_send = client.ServerConnection.send_dps_raw
+
+    def run(*a, **kw):
+        reports.append(real_run(*a, **kw))
+        return reports[-1]
+
+    def send(self, payload, nb, *a, **kw):
+        status = real_send(self, payload, nb, *a, **kw)
+        sent.append(payload)
+        return status
+
+    client.run_client = run
+    if sent is not None:
+        client.ServerConnection.send_dps_raw = send
+    try:
+        yield reports
+    finally:
+        client.run_client = real_run
+        client.ServerConnection.send_dps_raw = real_send
+
+
+def phase_net(sym, standalone, sent, fixture="in64.txt", key=IN64_KEY):
+    """9 / 9s: the CLI server in its own process, a CLI client here (so
+    that the launch counts see its walk), to the key; returns the walk
+    kernel's launches in the client."""
+    import tempfile
+    from pathlib import Path
+
+    from kangaroo_torch import cli
+
+    tag = "9s network, -sym" if sym else "9 network"
+    fx = str(Path(__file__).resolve().parent / "fixtures" / fixture)
+    flag = ["-sym"] if sym else []
+    with tempfile.TemporaryDirectory() as td, \
+            _cli_server(["-d", str(DP_FULL), *flag, fx], td) as (port, out):
+        t = time.time()
+        _reset_counts()
+        with _client_reports(None if sym else sent) as reports:
+            rc = cli.main(["-c", "127.0.0.1", "-sp", str(port), "-nk",
+                           str(N_FULL), *flag])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = _read_counts(sym, tag)
+    rep = reports[0]
+    st = rep.solver.stats
+    stalls = np.array(rep.sink_stalls) * 1e3
+    got = _server_key(out)
+    print(f"[{tag}] {fixture} at {N_FULL} lanes, server dp {DP_FULL}, "
+          f"client exit {rc}: server key {hex(got) if got else None}; "
+          f"client wall {wall:.2f} s (herd {st.herd_time:.2f} s, walk "
+          f"{st.time:.2f} s, {st.ticks} ticks, 2^"
+          f"{math.log2(max(st.count, 1)):.2f} jumps, loop "
+          f"{st.count / st.time / 1e9:.3f} G jumps/s against the standalone "
+          f"{standalone.count / standalone.time / 1e9:.3f} of phase 5s); "
+          f"{rep.dps_sent} DPs sent in {rep.sends} sends; sink stall per "
+          f"tick median {np.median(stalls):.2f} ms, max {stalls.max():.2f} "
+          f"ms over {len(stalls)} ticks; server heard the end: "
+          f"{rep.ended}; launches {launches}", flush=True)
+    if rc != 0 or got != key or not rep.ended:
+        raise SystemExit(f"{tag}: the server did not find the key "
+                         f"{hex(key)}: {out[-5:]}")
+    return launches
+
+
+def phase_wss(sent, fixture="in64.txt", key=IN64_KEY):
+    """9w: -wss save at every tick for 2 ticks, the server's file
+    rebuilt on the card bit-equal to the snapshot sent, then a client
+    restored from the server to the key."""
+    import tempfile
+    from pathlib import Path
+
+    from kangaroo_torch.core.solver import SolverOptions
+    from kangaroo_torch.io import backup
+    from kangaroo_torch.net.client import ServerConnection, run_client
+    from kangaroo_torch.utils.packing import canon_mod_p, le_bytes_to_limbs
+
+    tag = "9w -wss"
+    fx = str(Path(__file__).resolve().parent / "fixtures" / fixture)
+    with tempfile.TemporaryDirectory() as td, \
+            _cli_server(["-d", str(DP_FULL), fx], td) as (port, out), \
+            _client_reports(sent):
+        wf = os.path.join(td, "k.srv")
+        run = dict(nb_kangaroo=N_FULL, nb_run=0, device="cuda", quiet=True,
+                   work_file=wf)
+        _reset_counts()
+        t = time.time()
+        rep = run_client("127.0.0.1", port, SolverOptions(
+            seed=SEED, save_period=0, **run), save_kangaroo_server=True,
+            max_ticks=2, quiet=True)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches_save = _read_counts(False, "the -wss saving client")
+        st = rep.solver.stats
+        if rep.ended or len(rep.wss) != 2:
+            raise SystemExit(f"{tag}: the 2-tick client ended the search "
+                             f"or did not save at each tick")
+        sent_herd = [b.numpy().copy() for b in rep.solver._snap]
+        deadline = time.time() + 30
+        while (sum("Kangaroo backup" in ln for ln in list(out)) < 2
+               and time.time() < deadline):
+            time.sleep(0.05)
+        srv_lines = [ln.strip() for ln in out if "Kangaroo backup" in ln]
+        print(f"[{tag}] client at {N_FULL} lanes, dp {rep.solver.dp_size}: "
+              f"{st.ticks} ticks with a -wss save each in {wall:.2f} s "
+              f"(herd {st.herd_time:.2f} s, walk {st.time:.2f} s, solver "
+              f"thread in the saves {st.save_stall:.3f} s); pack, send "
+              f"(s): {[(round(a, 4), round(b, 4)) for a, b in rep.wss]}; "
+              f"server: {srv_lines}; launches {launches_save}", flush=True)
+        if len(srv_lines) != 2:
+            raise SystemExit(f"{tag}: the server did not keep 2 backups")
+        conn = ServerConnection("127.0.0.1", port, timeout=30.0)
+        conn.connect()
+        t = time.time()
+        raw = conn.load_kangaroos_via_server(wf)
+        load_s = time.time() - t
+        conn.close()
+        t = time.time()
+        herd = backup.rebuild_from_d128(
+            le_bytes_to_limbs(np.frombuffer(raw, np.uint8).reshape(-1, 16),
+                              8),
+            rep.solver.range_start, rep.solver.range_end,
+            rep.solver.key_to_search, device="cuda")
+        torch.cuda.synchronize()
+        rebuild_s = time.time() - t
+        for name, got, want in zip(
+                ("px", "py", "d"),
+                (herd[0], canon_mod_p(herd[1]), herd[2]),
+                (sent_herd[0], canon_mod_p(sent_herd[1]), sent_herd[2])):
+            if not np.array_equal(got.astype(np.int64),
+                                  want.astype(np.int64)):
+                raise SystemExit(f"{tag}: rebuilt {name} differs from the "
+                                 f"snapshot sent")
+        print(f"[{tag}] load {load_s:.3f} s ({len(raw)} B over loopback), "
+              f"rebuild on the card {rebuild_s:.2f} s: px, canonical py and "
+              f"d bit-equal to the snapshot sent", flush=True)
+        _reset_counts()
+        t = time.time()
+        rep2 = run_client("127.0.0.1", port, SolverOptions(
+            seed=SEED + 1, save_period=3600, **run),
+            save_kangaroo_server=True, quiet=True)
+        torch.cuda.synchronize()
+        wall2 = time.time() - t
+        launches_resume = _read_counts(False, "the -wss restored client")
+        st2 = rep2.solver.stats
+    got = _server_key(out)
+    print(f"[{tag}] restored client: {rep2.restored} kangaroos from the "
+          f"server; wall {wall2:.2f} s (restore {st2.herd_time:.2f} s, "
+          f"{st2.ticks} ticks), {rep2.dps_sent} DPs sent; server key "
+          f"{hex(got) if got else None}; launches {launches_resume}",
+          flush=True)
+    if rep2.restored != N_FULL or got != key or not rep2.ended:
+        raise SystemExit(f"{tag}: the restored client did not reach the key")
+    return launches_save, launches_resume
+
+
+def phase_ingest(sent, n=1 << 20, conns=4):
+    """9v: validated ingest on the card.  2^20 plain in64 DPs from the
+    clients of 9 and 9w, without the wild records whose x a tame record
+    also has (the pairs that solve the key, which would end the
+    search), 1 % forged (x ^ 1), go to an in-process server over `conns`
+    connections at once."""
+    from pathlib import Path
+
+    from kangaroo_torch.core.config import parse_config_file
+    from kangaroo_torch.net.client import ServerConnection
+    from kangaroo_torch.net.server import DPServer
+
+    tag = "9v validated ingest"
+    arr = np.frombuffer(b"".join(sent), np.uint8).reshape(-1, 40)
+    keys = np.zeros((len(arr), 3), dtype=np.uint64)
+    keys[:, 0] = arr[:, 4:8].copy().view("<u4").ravel()
+    keys[:, 1:] = arr[:, 8:24].copy().view("<u8")
+    _, inv = np.unique(keys, axis=0, return_inverse=True)
+    inv = inv.ravel()
+    wild = ((arr[:, 39] >> 6) & 1) == 1
+    has_tame = np.zeros(inv.max() + 1, dtype=bool)
+    has_tame[inv[~wild]] = True
+    solving = wild & has_tame[inv]
+    arr = arr[~solving][:n].copy()
+    if len(arr) < n:
+        raise SystemExit(f"{tag}: only {len(arr)} DPs were sent")
+    bad = np.zeros(n, dtype=bool)
+    bad[np.random.RandomState(SEED).choice(n, n // 100, replace=False)] = True
+    arr[bad, 8] ^= 1
+    srv = DPServer(parse_config_file(
+        str(Path(__file__).resolve().parent / "fixtures" / "in64.txt")),
+        DP_FULL, port=0, validate_points=True, device="cuda")
+    srv.process_period = 0.05
+    st = threading.Thread(target=srv.run, daemon=True,
+                          kwargs={"max_seconds": 600, "quiet": True})
+    st.start()
+    deadline = time.time() + 30
+    while srv.port == 0 and time.time() < deadline:
+        time.sleep(0.02)
+    errors = []
+
+    def client(part):
+        try:
+            conn = ServerConnection("127.0.0.1", srv.port, timeout=60.0)
+            conn.connect()
+            for off in range(0, len(part), 1 << 16):
+                blk = part[off:off + (1 << 16)]
+                conn.send_dps_raw(blk.tobytes(), len(blk))
+            conn.close()
+        except Exception as e:  # reported by the phase
+            errors.append(e)
+
+    t = time.time()
+    ths = [threading.Thread(target=client, args=(p,), daemon=True)
+           for p in np.array_split(arr, conns)]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join(timeout=300)
+    deadline = time.time() + 300
+    while (srv.hash_table.n_items() + srv.dead + srv.rejected < n
+           and time.time() < deadline):
+        time.sleep(0.01)
+    dt = time.time() - t
+    srv.end_of_search = True
+    st.join(timeout=60)
+    kept = srv.hash_table.n_items() + srv.dead
+    print(f"[{tag}] {n} DPs ({int(solving.sum())} solving wild DPs left "
+          f"out) over {conns} connections in {dt:.2f} s = {n / dt:.0f} "
+          f"DPs/s; rejected {srv.rejected} of {int(bad.sum())} forged; "
+          f"table {srv.hash_table.n_items()}, dead {srv.dead}; client "
+          f"errors {errors}", flush=True)
+    if (errors or srv.rejected != int(bad.sum()) or kept != n - int(bad.sum())
+            or srv.result is not None or any(th.is_alive() for th in ths)
+            or st.is_alive()):
+        raise SystemExit(f"{tag}: the validated ingest is wrong")
+    return n / dt
+
+
 def _sym_state(dev):
     """A 2^22-lane symmetry herd after one symmetry window of the
     kernel, so that its classes hold both values."""
@@ -950,6 +1254,12 @@ def main():
     w_save, w_resume = phase_work(False)
     ws_save, ws_resume = phase_work(True)
     w_split = phase_wsplit()
+    sent = []
+    net = phase_net(False, plain_st, sent)
+    net_sym = phase_net(True, sym_st, sent)
+    wss_save, wss_resume = phase_wss(sent)
+    phase_ingest(sent)
+    del sent
     torch.cuda.empty_cache()
     cmp_probes = phase_probe_compare(dev)
     probe_rows, probe_counts = phase_probes()
@@ -957,11 +1267,14 @@ def main():
     kernels = [
         _entry("plain", launches, cmp_plain, ms, bound, by, {
             "5 in56 solve": launches, "6 in64 saving solve": w_save,
-            "6 in64 resume": w_resume, "6w in64 -wsplit solve": w_split}),
+            "6 in64 resume": w_resume, "6w in64 -wsplit solve": w_split,
+            "9 in64 client": net, "9w in64 -wss save": wss_save,
+            "9w in64 -wss resume": wss_resume}),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
                sym_by, {"5s in64 -sym solve": sym_launches,
                         "6s in64 -sym saving solve": ws_save,
-                        "6s in64 -sym resume": ws_resume}),
+                        "6s in64 -sym resume": ws_resume,
+                        "9s in64 -sym client": net_sym}),
     ] + _probe_entries(probe_rows, probe_counts, cmp_probes)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,18 +1,23 @@
-"""Command-line entry point of the PyTorch/CUDA port (standalone solve).
+"""Command-line entry point of the PyTorch/CUDA port.
 
-Flag surface of kangaroo_tpu/cli.py restricted to the standalone solve,
-plain or symmetric (-sym), its work files (checkpoint -w/-wi/-ws/-wsplit/
--wt, resume -i, the tools -wm/-wmdir/-winfo/-wpartcreate/-wcheck) and
-the self-check (-check); the other flags of that CLI (network,
-multi-device, -wss) exit non-zero with "not yet ported".
+Flag surface of kangaroo_tpu/cli.py: the standalone solve, plain or
+symmetric (-sym), its work files (checkpoint -w/-wi/-ws/-wsplit/-wt,
+resume -i, the tools -wm/-wmdir/-winfo/-wpartcreate/-wcheck), the
+self-check (-check), the DP server (-s) and its clients (-c, -wss), and
+-l.  -nwin and -devices exit non-zero with "not yet ported"; -backend and
+-platform, which pick a JAX backend, exit non-zero naming -device.
 
     python -m kangaroo_torch.cli [-d dp] [-nk n] [-nbrun n] [-m maxStep]
         [-o file] [-dpcost s] [-sym] [-device cuda|cpu]
         [-w file [-wi s] [-ws] [-wsplit] [-wt ms]] [-i file] inFile
+    python -m kangaroo_torch.cli -s -d dp [-sp port] [-nt ms] [-sym]
+        [-w file [-wi s] [-wsplit]] [-o file] (inFile | -i workfile)
+    python -m kangaroo_torch.cli -c serverIp [-sp port] [-nt ms] [-nk n]
+        [-sym] [-device cuda|cpu] [-w file [-wi s] [-wss]] [-i file]
     python -m kangaroo_torch.cli [-device cuda|cpu] -check
     python -m kangaroo_torch.cli [-device cuda|cpu] -wcheck file
     python -m kangaroo_torch.cli -winfo file | -wm f1 f2 dest |
-        -wmdir dir dest | -wpartcreate dir
+        -wmdir dir dest | -wpartcreate dir | -l
 """
 
 from __future__ import annotations
@@ -22,14 +27,13 @@ import sys
 import time
 from typing import List, Optional
 
-from .constants import RELEASE
+from .constants import DEFAULT_PORT, RELEASE
 
-# Flags of kangaroo_tpu/cli.py that later slices of the port add, with
-# the number of arguments each takes.
-NOT_YET_PORTED = {
-    "-nwin": 1, "-backend": 1, "-platform": 1, "-devices": 1, "-wss": 0,
-    "-s": 0, "-c": 1, "-sp": 1, "-nt": 1, "-l": 0,
-}
+# Flags of kangaroo_tpu/cli.py that later slices of the port add.
+NOT_YET_PORTED = ("-nwin", "-devices")
+# Flags of kangaroo_tpu/cli.py that pick a JAX backend or platform; the
+# port's -device does that.
+USE_DEVICE = ("-backend", "-platform")
 
 
 def print_usage() -> None:
@@ -58,6 +62,13 @@ def print_usage() -> None:
  -wpartcreate name: Create empty partitioned work file (name is a directory)
  -wcheck workfile: Check workfile integrity on -device (exit 0 when every
        DP re-derives)
+ -wss: Save kangaroos via the server (client mode, with -w)
+ -s: Start in server mode (needs -d)
+ -c server_ip: Start in client mode and connect to server server_ip; it
+       gives up when the server stays away for 3600 s (CLIENT_TIMEOUT)
+ -sp port: Server port, default is 17403 (0: any free port, server mode)
+ -nt timeout: Network timeout in millisec (default is 3000ms)
+ -l: List the CUDA devices
  -m maxStep: number of operations before give up the search (maxStep*expected operation)
  -o fileName: output result to fileName
  inFile: input configuration file"""
@@ -101,6 +112,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     wsplit = False
     save_timeout = 3.0
     wcheck = ""
+    server_mode = False
+    server_ip = ""
+    port = DEFAULT_PORT
+    net_timeout = 3.0
+    wss = False
 
     i = 0
     while i < len(argv):
@@ -164,9 +180,25 @@ def main(argv: Optional[List[str]] = None) -> int:
             return 0
         elif a == "-wcheck":
             i += 1; wcheck = _arg(argv, i, a)
+        elif a == "-wss":
+            wss = True
+        elif a == "-s":
+            server_mode = True
+        elif a == "-c":
+            i += 1; server_ip = _arg(argv, i, a)
+        elif a == "-sp":
+            i += 1; port = int(_arg(argv, i, a))
+        elif a == "-nt":
+            i += 1; net_timeout = float(_arg(argv, i, a)) / 1000.0
+        elif a == "-l":
+            return _list_devices()
         elif a in NOT_YET_PORTED:
             print(f"{a}: not yet ported to kangaroo_torch "
                   f"(use python -m kangaroo_tpu.cli)")
+            return 2
+        elif a in USE_DEVICE:
+            print(f"{a}: kangaroo_torch has no JAX backend or platform; "
+                  f"use -device cuda|cpu")
             return 2
         elif a.startswith("-"):
             print(f"Unknown option {a}")
@@ -185,7 +217,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         rep = check_work_file(wcheck, device=device)
         print(f"CheckWorkFile: {rep.n_items} DPs, {rep.n_wrong} wrong")
         return 0 if rep.ok else 1
-    if not in_file and not load_file:
+    if symmetry and (server_mode or server_ip):
+        # the wire has no symmetry marker (the reference's USE_SYMMETRY
+        # is a compile-time property of every participant): a plain
+        # client and a -sym server silently mix distance conventions
+        print("-sym network mode: ALL participants must run with -sym "
+              "(the wire has no symmetry marker)")
+    if server_mode:
+        return _serve(in_file, load_file, dp, port, net_timeout, work_file,
+                      save_period, wsplit, out_file, symmetry, device)
+    if not in_file and not load_file and not server_ip:
         print_usage()
         return 2
 
@@ -202,6 +243,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         save_kangaroo=save_kangaroo, split_work_file=wsplit,
         save_timeout=save_timeout,
     )
+    if server_ip:
+        return _client(server_ip, port, net_timeout, opts, wss, load_file)
     if load_file:
         from .core.solver import SymmetryMismatch
         from .io.backup import load_work
@@ -271,6 +314,75 @@ def main(argv: Optional[List[str]] = None) -> int:
         pub = curve.get_public_key_hex(cfg.keys[key_idx], True)
         print(f"Key#{key_idx:2d} [{res.variant}{res.sign_info}]Pub:  0x{pub}")
         print(f"       Priv: 0x{res.private_key:X}")
+    return 0
+
+
+def _list_devices() -> int:
+    """-l: the CUDA devices by index and name, then the CPU."""
+    import torch
+
+    n = torch.cuda.device_count()
+    print(f"CUDA devices: {n}")
+    for k in range(n):
+        print(f"  {k}: {torch.cuda.get_device_name(k)} (cuda)")
+    print("  cpu (-device cpu)")
+    return 0
+
+
+def _serve(in_file, load_file, dp, port, net_timeout, work_file,
+           save_period, wsplit, out_file, symmetry, device) -> int:
+    """-s: the DP server on in_file's problem, or resumed from the work
+    file load_file, whose DP size (unless -d) and -sym it adopts
+    (reference: LoadWork before RunServer, main.cpp:338-352)."""
+    from .core.config import ProblemConfig, parse_config_file
+    from .net.server import DPServer
+
+    lw = None
+    if load_file:
+        from .io.backup import load_work
+
+        lw = load_work(load_file, load_kangaroos=False)
+        cfg = ProblemConfig(lw.range_start, lw.range_end, [lw.key])
+        if dp < 0:
+            dp = lw.dp_size
+        if lw.symmetry != symmetry:
+            print(f"{load_file}: work file was saved "
+                  f"{'with' if lw.symmetry else 'without'} -sym; adopting "
+                  f"the file's convention")
+            symmetry = lw.symmetry
+    elif in_file:
+        cfg = parse_config_file(in_file)
+    else:
+        print_usage()
+        return 2
+    if dp < 0:
+        print("Server mode requires -d (fixed DP size)")
+        return -1
+    server = DPServer(cfg, dp, port=port, work_file=work_file,
+                      save_period=save_period, split_work_file=wsplit,
+                      out_file=out_file, timeout=net_timeout,
+                      symmetry=symmetry, device=device)
+    if lw is not None:
+        server.hash_table = lw.hash_table
+        print(f"Loaded: {server.hash_table.n_items()} DPs")
+    return 0 if server.run() is not None else 1
+
+
+def _client(server_ip, port, net_timeout, opts, wss, load_file) -> int:
+    """-c: walk on opts.device for the server at server_ip:port."""
+    from .net.client import ServerUnreachable, run_client
+
+    try:
+        rep = run_client(server_ip, port, opts, timeout=net_timeout,
+                         save_kangaroo_server=wss, load_file=load_file)
+    except ServerUnreachable as e:
+        print(f"\n{e}")
+        return 1
+    st = rep.solver.stats
+    print(f"\n[herd {st.herd_time:.2f}s][walk {st.time:.2f}s]"
+          f"[{st.ticks} ticks][2^{math.log2(max(st.count, 1)):.2f} ops]"
+          f"[{rep.dps_sent} DPs sent in {rep.sends} sends]"
+          f"{'[server: end of search]' if rep.ended else ''}")
     return 0
 
 

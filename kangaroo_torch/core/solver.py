@@ -14,6 +14,11 @@ count, time and optionally its herd in the background (`_save_work`),
 and resumes from a loaded file (`from_work`) or, on a repeated solve()
 of the same key, from where the last one stopped, keeping the table and
 the count (reference: SaveWork / LoadWork, Backup.cpp:149-207,449-572).
+
+Client mode (`solve(dp_sink=...)`, net/client.py): the DPs go to a
+server as wire records instead of into the local table, and a save
+writes the herd alone, to a local HEADK file or through `save_hook`
+(-wss) (reference: the clientMode branches of SolveKeyGPU and SaveWork).
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ import torch
 
 from ..constants import HASH_SIZE, N_ORDER, TAME
 from ..io import backup
-from ..utils import rng as rng_mod
+from ..utils import packing, rng as rng_mod
 from . import curve, herd as herd_mod
 from .collision import collision_check
 from .config import ProblemConfig
@@ -267,15 +272,29 @@ class KangarooSolver:
 
     # -- main loop ------------------------------------------------------
     def solve(self, key_idx: int = 0, progress: Optional[Callable] = None,
-              max_ticks: Optional[int] = None):
+              max_ticks: Optional[int] = None,
+              dp_sink: Optional[Callable] = None,
+              save_hook: Optional[Callable] = None):
         """Solve one key.  Returns a SolveResult, or None when stopped
-        by max_ticks or max_step.
+        by max_ticks, max_step or the sink.
 
         A repeated solve() of the same key keeps the table, the count
         and the time and continues the walk from last_state; so does
         the first solve() after from_work, from the loaded herd.  A new
         key starts afresh (reference: hashTable.Reset between keys,
-        Kangaroo.cpp:1054-1056)."""
+        Kangaroo.cpp:1054-1056).
+
+        Client mode: with dp_sink, each window's DPs go to
+        dp_sink(raw, m) as m 40-byte wire records {u32 origin lane,
+        36-byte table record}, in walk order, and not into the table; no
+        lane is reset, and the loop stops when the sink returns True
+        (the server reported the end of the search).  A periodic save
+        then writes a kangaroo-only HEADK file to opts.work_file in the
+        background, or, with save_hook, calls save_hook(solver, px, py,
+        d, elapsed) on this thread with the host buffers of the herd's
+        snapshot once its copy is done (-wss: the hook shares the
+        server connection with the sink).  The next save reuses those
+        buffers: a hook that keeps them copies them."""
         from ..ops import jump_cuda, jump_ref
 
         opts = self.opts
@@ -356,8 +375,6 @@ class KangarooSolver:
         result = None
         slot_iota = torch.arange(n_slots, device=dev)[:, None]
         wd2 = self.width_div2
-        wlo = np.uint64(wd2 & 0xFFFFFFFFFFFFFFFF)
-        whi = np.uint64(wd2 >> 64)
         wd2_sym = wd2 if sym else None
 
         def compact(count, dpx, dpd, step):
@@ -401,28 +418,7 @@ class KangarooSolver:
                 dl[:, 2] << np.uint64(32)) | (dl[:, 3] << np.uint64(48))
             hi = dl[:, 4] | (dl[:, 5] << np.uint64(16)) | (
                 dl[:, 6] << np.uint64(32)) | (dl[:, 7] << np.uint64(48))
-            ktype = (lanes & 1).astype(np.uint64)
-            if sym:
-                neg = (hi >> np.uint64(63)).astype(bool)
-                vlo, vhi = lo, hi
-            else:
-                wild = ktype == 1
-                borrow = (lo < wlo).astype(np.uint64)
-                nl = lo - wlo
-                nh = hi - whi - borrow
-                below = (hi < whi) | ((hi == whi) & (lo < wlo))
-                vlo = np.where(wild, nl, lo)
-                vhi = np.where(wild, nh, hi)
-                neg = wild & below
-            # |v| for negative values (two's-complement negate, 128b)
-            mlo = (~vlo) + np.uint64(1)
-            mhi = (~vhi) + (vlo == 0).astype(np.uint64)
-            vlo = np.where(neg, mlo, vlo)
-            vhi = np.where(neg, mhi, vhi)
-            if (vhi >> np.uint64(62)).any():
-                raise ValueError("distance magnitude exceeds 126 bits")
-            dhi = vhi | (ktype << np.uint64(62)) | (
-                neg.astype(np.uint64) << np.uint64(63))
+            vlo, dhi = packing.d128_words(lo, hi, lanes, wd2, sym)
             rec = np.empty((m, 36), dtype=np.uint8)
             rec[:, 0:4] = hbk.astype("<u4").view(np.uint8).reshape(m, 4)
             rec[:, 4:20] = xl[:, :8].astype("<u2").view(np.uint8).reshape(
@@ -431,10 +427,13 @@ class KangarooSolver:
             rec[:, 28:36] = dhi.astype("<u8").view(np.uint8).reshape(m, 8)
             return rec, lanes
 
+        sink_end = False
+
         def drain(pulled):
             """Insert one window's DPs; resolve collisions; reset dead
-            lanes.  Returns True when the key is solved."""
-            nonlocal px, py, d, symclass, result
+            lanes.  Returns True when the key is solved, or in client
+            mode when the sink reports the end of the search."""
+            nonlocal px, py, d, symclass, result, sink_end
             lost, blk = pulled
             if lost:
                 self.stats.lost += lost
@@ -447,6 +446,14 @@ class KangarooSolver:
                 return False
             rec, lanes = encode_records(blk)
             m = rec.shape[0]
+            if dp_sink is not None:
+                # the wire's kIdx column carries the origin lane
+                wire = np.empty((m, 40), dtype=np.uint8)
+                wire[:, 0:4] = lanes.astype("<u4").view(np.uint8).reshape(
+                    m, 4)
+                wire[:, 4:] = rec
+                sink_end = bool(dp_sink(wire.tobytes(), m))
+                return sink_end
             resets = []
             # chunked like the JAX solver's drain, so dead-lane resets
             # (and their RNG draws) come in the same order
@@ -512,13 +519,18 @@ class KangarooSolver:
             if progress is not None and now - last_status > 2.0:
                 progress(self, now - t0)
                 last_status = now
-            if (opts.work_file and result is None
+            if ((opts.work_file or save_hook is not None)
+                    and result is None and not sink_end
                     and now - last_save > opts.save_period):
                 # tick T's herd (after T-1's resets), the DPs up to T-1
                 # and tick T in the count, as the JAX solver saves
-                self._save_work(px, py, d, now - t0)
+                if save_hook is not None:
+                    self._run_save_hook(save_hook, px, py, d, now - t0)
+                else:
+                    self._save_work(px, py, d, now - t0,
+                                    kangaroo_only=dp_sink is not None)
                 last_save = now
-        if result is None and pending is not None:
+        if result is None and not sink_end and pending is not None:
             drain(compact(*pending))
         if dev.type == "cuda":
             # the last dispatched window is in stats.count: finish it, so
@@ -583,18 +595,31 @@ class KangarooSolver:
         ev.record()
         return self._snap, ev
 
-    def _save_work(self, px, py, d, elapsed):
+    def _run_save_hook(self, hook, px, py, d, elapsed):
+        """Client mode's -wss save: the hook gets the snapshot's host
+        buffers on the solver thread, once the copy is done."""
+        t0 = time.perf_counter()
+        snap, ev = self._snapshot(px, py, d)
+        if ev is not None:
+            ev.synchronize()
+        hook(self, *(b.numpy() for b in snap), elapsed)
+        self.stats.saves += 1
+        self.stats.save_stall += time.perf_counter() - t0
+
+    def _save_work(self, px, py, d, elapsed, kangaroo_only=False):
         """Checkpoint without stalling the walk.
 
         The solver thread copies the herd into host buffers on the
-        walk's stream (only with -ws), swaps in a fresh table for
-        -wsplit, and starts a writer thread; the writer waits for the
-        copy, packs the herd and writes the table span by span (a drain
-        meanwhile waits for one span at most: a fuzzy snapshot, exact
-        with -wsplit, whose table is frozen).  The reference instead
-        pauses all workers for the whole write (Backup.cpp:449-472); -wt
-        bounds the wait for a save that is still running, after which
-        this interval's save is skipped.
+        walk's stream (only with -ws, or for a client's kangaroo-only
+        file), swaps in a fresh table for -wsplit, and starts a writer
+        thread; the writer waits for the copy, packs the herd and writes
+        the table span by span (a drain meanwhile waits for one span at
+        most: a fuzzy snapshot, exact with -wsplit, whose table is
+        frozen), or for a client (kangaroo_only) a HEADK file of the
+        herd alone.  The reference instead pauses all workers for the
+        whole write (Backup.cpp:449-472); -wt bounds the wait for a save
+        that is still running, after which this interval's save is
+        skipped.
         """
         prev = self._save_thread
         if prev is not None and prev.is_alive():
@@ -607,13 +632,14 @@ class KangarooSolver:
                 return
         self._raise_save_error()
         t0 = time.perf_counter()
-        snap, ev = (self._snapshot(px, py, d) if self.opts.save_kangaroo
+        snap, ev = (self._snapshot(px, py, d)
+                    if self.opts.save_kangaroo or kangaroo_only
                     else (None, None))
         count = self.stats.count
         total_time = self.offset_time + elapsed
         table = self.hash_table
         name = self.opts.work_file
-        if self.opts.split_work_file:
+        if self.opts.split_work_file and not kangaroo_only:
             # -wsplit: swap in a fresh table now (solver thread) and
             # write the frozen one; offline merge recovers cross-file
             # collisions.  Files are timestamped like the reference's.
@@ -626,9 +652,13 @@ class KangarooSolver:
                     ev.synchronize()
                 herd = ((None,) * 3 if snap is None
                         else tuple(b.numpy() for b in snap))
-                backup.save_work(name, self, *herd, count, total_time,
-                                 save_kangaroo=snap is not None,
-                                 table=table)
+                if kangaroo_only:
+                    backup.save_kangaroo_file(name, self, *herd, count,
+                                              total_time)
+                else:
+                    backup.save_work(name, self, *herd, count, total_time,
+                                     save_kangaroo=snap is not None,
+                                     table=table)
             except BaseException as e:  # raised by the solver thread
                 self._save_error = e
 

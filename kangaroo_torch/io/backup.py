@@ -302,16 +302,26 @@ def save_kangaroo_file(
                      total_count, total_time, symmetry=sym)
         _w_u64(f, n)
         if compressed:
-            # 16-byte D encoding, type from kangaroo parity: the
-            # vectorized convert(0, dist, i % 2) per item
-            types = np.arange(n, dtype=np.int64) & 1
-            dm = packing.true_dist_limbs(d, types, solver.width_div2, sym)
-            f.write(packing.limbs_to_le_bytes(
-                packing.pack_d128(dm, types)).tobytes())
+            f.write(d128_records(d, solver.width_div2, sym).tobytes())
         else:
             f.write(packing.pack_kangaroos(px, py, d, solver.width_div2,
                                            sym))
     os.replace(tmp, path)
+
+
+def d128_records(d, width_div2: int, symmetry: bool) -> np.ndarray:
+    """(8, N) device distances -> (N, 16) uint8: each kangaroo's 16-byte
+    D encoding, its type from its lane's parity (the vectorized
+    convert(0, dist, i % 2) per lane), as HEADKS files and the -wss
+    exchange store them."""
+    d = _host(d).astype(np.uint64)
+    n = d.shape[1]
+    lo, hi = (d[k] | (d[k + 1] << np.uint64(16)) | (d[k + 2] << np.uint64(32))
+              | (d[k + 3] << np.uint64(48)) for k in (0, 4))
+    words = np.empty((n, 2), dtype="<u8")
+    words[:, 0], words[:, 1] = packing.d128_words(
+        lo, hi, np.arange(n) & 1, width_div2, symmetry)
+    return words.view(np.uint8).reshape(n, 16)
 
 
 def load_kangaroo_file(

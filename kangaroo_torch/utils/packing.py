@@ -188,6 +188,38 @@ def pack_d128(dm: np.ndarray, types: np.ndarray) -> np.ndarray:
     return out.astype(np.uint32)
 
 
+def d128_words(lo: np.ndarray, hi: np.ndarray, types: np.ndarray,
+               width_div2: int, symmetry: bool):
+    """Device distances as (N,) uint64 lo/hi words -> the lo/hi words of
+    their D128 encoding: the true distance (d, or d - rangeWidth/2 on
+    wild lanes; in symmetry mode the signed 128-bit d itself) as b127
+    sign, b126 type, b125..0 magnitude.  The same values as pack_d128 of
+    true_dist_limbs, in a few uint64 passes.  Raises ValueError when a
+    magnitude needs more than 126 bits."""
+    ktype = (np.asarray(types) & 1).astype(np.uint64)
+    if symmetry:
+        neg = (hi >> np.uint64(63)).astype(bool)
+        vlo, vhi = lo, hi
+    else:
+        wlo = np.uint64(width_div2 & 0xFFFFFFFFFFFFFFFF)
+        whi = np.uint64(width_div2 >> 64)
+        wild = ktype == 1
+        borrow = (lo < wlo).astype(np.uint64)
+        below = (hi < whi) | ((hi == whi) & (lo < wlo))
+        vlo = np.where(wild, lo - wlo, lo)
+        vhi = np.where(wild, hi - whi - borrow, hi)
+        neg = wild & below
+    # |v| for negative values (two's-complement negate, 128 bits)
+    mlo = (~vlo) + np.uint64(1)
+    mhi = (~vhi) + (vlo == 0).astype(np.uint64)
+    vlo = np.where(neg, mlo, vlo)
+    vhi = np.where(neg, mhi, vhi)
+    if (vhi >> np.uint64(62)).any():
+        raise ValueError("distance magnitude exceeds 126 bits")
+    return vlo, vhi | (ktype << np.uint64(62)) | (
+        neg.astype(np.uint64) << np.uint64(63))
+
+
 def unpack_d128(d128: np.ndarray):
     """(8, N) D-encoded values -> ((16, N) mod-n distances, (N,) types).
 

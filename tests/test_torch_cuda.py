@@ -272,3 +272,80 @@ def test_checkpoint_resume_and_wcheck_on_card(card, tmp_path, symmetry):
         launches))
     assert calls == 0 and (sym if symmetry else plain) == s2.stats.ticks
     assert (plain if symmetry else sym) == 0
+
+
+def _serve(srv):
+    """Start a DPServer on an ephemeral port in a thread."""
+    import threading
+    import time
+
+    srv.process_period = 0.1
+    t = threading.Thread(target=srv.run, daemon=True,
+                         kwargs={"max_seconds": 120, "quiet": True})
+    t.start()
+    deadline = time.time() + 10
+    while srv.port == 0 and time.time() < deadline:
+        time.sleep(0.02)
+    assert srv.port != 0
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_loopback_solve_on_card(card, symmetry):
+    """A client at 2^16 lanes walks on the card through its walk kernel
+    only and streams its DPs over loopback; the server finds the key and
+    the client hears the end."""
+    from kangaroo_torch.core.config import ProblemConfig
+    from kangaroo_torch.core.solver import SolverOptions
+    from kangaroo_torch.net.client import run_client
+    from kangaroo_torch.net.server import DPServer
+
+    start = 0x7A000000000000
+    key = start + 0x9C5A9E21B37
+    cfg = ProblemConfig(start, start + (1 << 44) - 1, [curve.mul(key)])
+    srv = DPServer(cfg, 6, port=0, symmetry=symmetry, device="cuda")
+    t = _serve(srv)
+    launches = (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES, jump_ref.CALLS)
+    rep = run_client("127.0.0.1", srv.port, SolverOptions(
+        nb_kangaroo=1 << 16, nb_run=64, seed=7, device="cuda",
+        symmetry=symmetry, quiet=True), timeout=10.0, quiet=True,
+        send_period=0.2, reconnect_timeout=10.0)
+    t.join(timeout=30)
+    assert not t.is_alive()
+    assert srv.result is not None and srv.result.private_key == key
+    assert rep.ended and rep.dps_sent > 0
+    plain, sym, calls = (a - b for a, b in zip(
+        (jump_cuda.LAUNCHES, jump_cuda.SYM_LAUNCHES, jump_ref.CALLS),
+        launches))
+    assert calls == 0 and (sym if symmetry else plain) == rep.solver.stats.ticks
+    assert (plain if symmetry else sym) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_server_validation_on_card(card, symmetry):
+    """The server re-derives real wire records on the card: the forged
+    ones (x ^ 1) are rejected, exactly, and the rest kept."""
+    from kangaroo_torch.core.config import ProblemConfig
+    from kangaroo_torch.core.solver import KangarooSolver, SolverOptions
+    from kangaroo_torch.net.server import DPServer
+
+    start = 0x7A000000000000
+    cfg = ProblemConfig(start, start + (1 << 60) - 1,
+                        [curve.mul(start + 0x9C5A9E21B3712)])
+    s = KangarooSolver(cfg, SolverOptions(
+        nb_kangaroo=1 << 16, nb_run=64, dp_size=8, seed=7, device="cuda",
+        symmetry=symmetry, quiet=True))
+    raw = []
+    s.solve(0, max_ticks=3, dp_sink=lambda r, m: raw.append(r) or False)
+    arr = np.frombuffer(b"".join(raw), np.uint8).reshape(-1, 40).copy()
+    bad = np.zeros(len(arr), dtype=bool)
+    bad[::100] = True
+    arr[bad, 8] ^= 1
+    srv = DPServer(cfg, 8, port=0, validate_points=True, symmetry=symmetry,
+                   device="cuda")
+    srv.recv_dp = [arr.tobytes()]
+    srv._process_once()
+    assert len(arr) > 1000 and srv.rejected == int(bad.sum())
+    assert srv.hash_table.n_items() + srv.dead == len(arr) - int(bad.sum())

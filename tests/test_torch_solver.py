@@ -148,10 +148,15 @@ def test_cli_solves_in32_sym_on_cpu():
 
 
 def test_cli_rejects_flags_not_yet_ported():
-    for flag in ("-wss", "-nwin", "-c", "-s"):
+    for flag in ("-nwin", "-devices"):
         r = _cli(flag, "x", IN32, timeout=120)
         assert r.returncode != 0
         assert "not yet ported" in r.stdout
+    # the JAX backend and platform flags: -device takes their place
+    for flag in ("-backend", "-platform"):
+        r = _cli(flag, "x", IN32, timeout=120)
+        assert r.returncode != 0
+        assert "use -device cuda|cpu" in r.stdout
     r = _cli("-v", timeout=120)
     assert r.returncode == 0 and "torch" in r.stdout
 
