@@ -3,9 +3,12 @@
 
 Drives the port's main paths on one CUDA card -- the solve, its work
 files (checkpoint, resume, -wsplit merge, -winfo, -wcheck), the probe
-entry points, -check -- and holds every kernel against its plain
+entry points, -check, the network, the multi-device herd (two lane
+shards, on two cards or side by side on one), fused launch windows and
+the multi-process herd -- and holds every kernel against its plain
 PyTorch version, phase by phase; any fault raises and the exit code is
-non-zero.  Run from the repository root:
+non-zero.  Each phase prints its seconds.  Run from the repository
+root:
 
     python3 chip_smoke.py
 
@@ -21,7 +24,7 @@ Phases:
   3. plain kernel vs plain walk at the main path's shape: the kernel
      walks a 2^22-lane herd (512 blocks of 128 threads x 64 lanes) once
      with slot overflow (dp 6, 2 slots, 256 steps) and once as the
-     solver runs it (dp 14, 6 slots, 512 steps); the plain walk runs the
+     solver runs it (dp 14, 6 slots, 256 steps); the plain walk runs the
      same window on 32 lanes of every block (2^14 lanes, corners of each
      block's thread x group grid included), and the kernel once more on
      those 2^14 lanes alone.
@@ -82,7 +85,23 @@ Phases:
      card) takes 2^20 of the DPs sent in 9 and 9w from 4 connections at
      once, 1 % of them forged (x ^ 1): rejected must be exactly the
      forged count, the table must hold the rest; DPs/s;
-  10. the kernels line, the card line and the result line.
+  10a. sharded window: a 2^22-lane herd walks 256 steps at dp 14 with
+     6 slots once as one launch and once as two 2^21-lane shards, each
+     on its own stream (on cuda:0 and cuda:1 when the host has two
+     cards, else both on cuda:0), plain and symmetry: every output
+     bit-equal (tolerance 0: the same kernel on the same lanes);
+  10b. sharded solve: in64 at 2^22 lanes in all on 2 shards, auto DP and
+     phase 5s's seed: the key, and ticks, jumps, dead and lost equal to
+     phase 5s's plain solve (the walk is the same); the wall, the loop's
+     rate beside 5s's and each shard's compaction seconds per tick;
+  10n. -nwin: in64 plain at 2^22 lanes with -nbrun 512 -nwin 2 to the
+     key; its jumps must be ticks x 2 x 512 x 2^22; the rate;
+  10m. multi-process: parallel/multihost.py with 2 processes over gloo,
+     each walking 2^20 lanes of one herd for 256 steps through the
+     kernel: the gathered walk bit-equal to one process's, the reduced
+     DP hits equal to its;
+  11. the kernels line (launches by path, the new paths' included), the
+     card line and the result line.
 """
 
 import contextlib
@@ -108,11 +127,11 @@ IN56_KEY = 0x9FD2E30C451A6B
 IN64_KEY = 0xCAFEBABE12345678
 NAMES = ("px", "py", "d", "count", "dpx", "dpd", "step")
 # (dp, slots, steps, overflow expected) of the kernel-vs-plain windows.
-# The plain walk takes 30-50 s per 512 steps on 2^14 lanes, by the
-# host's speed; the overflow windows are short (most lanes fill their 2
-# slots within 256 steps at dp 6) to keep the script well inside its
-# time limit.
-PLAIN_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 512, False))
+# The plain walk takes 15-25 s per 256 steps on 2^14 lanes, by the
+# host's speed; the windows are short (most lanes fill their 2 slots
+# within 256 steps at dp 6) to keep the script well inside its time
+# limit.
+PLAIN_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 256, False))
 SYM_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 256, False))
 # probe comparisons (phase 7): lanes of each 128-lane block that the
 # plain versions of P1's one-lane chains check; the rounds of the P1
@@ -492,8 +511,8 @@ def phase_work(sym, fixture="in64.txt", key=IN64_KEY, n=N_FULL,
         # one more snapshot, timed alone: the copy a save puts on the
         # walk's stream before the next launch
         t = time.perf_counter()
-        snap, ev = s._snapshot(*s.last_state)
-        if ev is not None:
+        snap, evs = s._snapshot([s.last_state])
+        for ev in evs:
             ev.synchronize()
         copy_s = time.perf_counter() - t
         snap = [b.numpy() for b in snap]
@@ -1229,53 +1248,262 @@ def _probe_entries(rows, counts, cmp):
     return out
 
 
+def _shard_devices():
+    """Two shards' devices: cuda:0 and cuda:1 when the host has two
+    cards, else cuda:0 twice (side by side on its streams)."""
+    two = torch.cuda.device_count() >= 2
+    return (["cuda:0", "cuda:1"] if two else ["cuda:0", "cuda:0"],
+            "cuda:0 and cuda:1" if two else
+            "both on cuda:0 (one card), each on its own stream")
+
+
+def phase_shard_tick(state, sym):
+    """10a: the window as one launch and as two lane shards on their own
+    streams (parallel/sharding.py), every output bit-equal; then both
+    timed in turns (one, two, two, one; host clock around a synchronize,
+    since two streams run).  Returns the sharded path's launches and
+    (one launch ms, two shards ms)."""
+    from kangaroo_torch.ops import jump_cuda, jump_ref
+    from kangaroo_torch.parallel import sharding
+
+    tag = "10a sharded window" + (", symmetry" if sym else "")
+    dev = torch.device("cuda", 0)
+    tabs = _tables(dev, sym) + [jump_ref.dp_limb_masks(DP_FULL, dev)]
+    names, where = _shard_devices()
+    shards = sharding.make_shards([torch.device(x) for x in names], N_FULL,
+                                  jump_cuda.LANE_QUANTUM)
+    herds = [list(h) + [h[3] if sym else None]
+             for h in sharding.shard_herd(shards, *state)]
+    tables = sharding.replicate(shards, *tabs)
+    one_in = [t.clone() for t in state]
+    tick = sharding.make_sharded_jump_steps(shards, 256, SLOTS_FULL, sym)
+
+    def one():
+        return _walk(jump_cuda.jump_steps_with_dp, one_in, tabs[:3],
+                     tabs[3], 256, SLOTS_FULL)
+
+    def two():
+        out = tick(herds, tables)
+        sharding.synchronize(shards)
+        return out
+
+    want = one()
+    torch.cuda.synchronize()
+    _reset_counts()
+    outs = two()
+    launches = _read_counts(sym, tag)
+    got = [torch.cat([o[k].to(dev) for o in outs], dim=-1)
+           for k in range(len(want))]
+    errs = {n: int((a.long() - b.long()).abs().max())
+            for n, a, b in zip(NAMES + ("symclass",), got, want)}
+    dps = int(want[3].sum())
+    del want, got, outs
+    ms = {one: [], two: []}
+    for fn in (one, two, two, one):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[fn].append((time.perf_counter() - t) * 1e3)
+    one_ms, two_ms = (sum(ms[f]) / 2 for f in (one, two))
+    print(f"[{tag}] {N_FULL} lanes x 256 steps, dp {DP_FULL}, "
+          f"{SLOTS_FULL} slots: two shards of {N_FULL // 2} lanes "
+          f"({where}), {launches} launches, {dps} DPs, max |shards - one "
+          f"launch| {errs}; in turns one launch {ms[one][0]:.1f}, two "
+          f"shards {ms[two][0]:.1f}, {ms[two][1]:.1f}, one launch "
+          f"{ms[one][1]:.1f} ms (host clock): two shards "
+          f"{two_ms / one_ms - 1:+.1%}", flush=True)
+    if any(errs.values()) or launches != 2 or dps == 0:
+        raise SystemExit(f"{tag}: the two shards differ from one launch")
+    return launches, (one_ms, two_ms)
+
+
+def phase_shard_solve(plain_st):
+    """10b: in64 at 2^22 lanes on 2 shards with phase 5s's options; the
+    walk must be 5s's plain solve's, jump for jump."""
+    from pathlib import Path
+
+    from kangaroo_torch.core.config import parse_config_file
+    from kangaroo_torch.core.solver import KangarooSolver, SolverOptions
+
+    tag = "10b sharded solve"
+    names, where = _shard_devices()
+    cfg = parse_config_file(
+        str(Path(__file__).resolve().parent / "fixtures" / "in64.txt"))
+    opts = SolverOptions(nb_kangaroo=N_FULL, nb_run=0, seed=SEED,
+                         device=names, quiet=True)
+    _reset_counts()
+    t = time.time()
+    solver = KangarooSolver(cfg, opts)
+    res = solver.solve(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = _read_counts(False, tag)
+    st = solver.stats
+    per_shard = list(zip(*st.compact_s))
+    rate, rate5 = st.count / st.time, plain_st.count / plain_st.time
+    print(f"[{tag}] in64.txt at {N_FULL} lanes in {len(solver.shards)} "
+          f"shards of {N_FULL // len(solver.shards)} ({where}), dp "
+          f"{solver.dp_size}, nb_run {opts.nb_run} x "
+          f"{solver.windows_per_tick} windows, slots {solver.n_slots}: key "
+          f"{hex(res.private_key) if res else None}; wall {wall:.2f} s "
+          f"(herd {st.herd_time:.2f} s, walk {st.time:.2f} s, {st.ticks} "
+          f"ticks, 2^{math.log2(max(st.count, 1)):.2f} jumps, dead "
+          f"{st.dead}, lost {st.lost}); loop {rate / 1e9:.3f} G jumps/s "
+          f"against phase 5s's {rate5 / 1e9:.3f} ({rate / rate5 - 1:+.1%}); "
+          f"compaction seconds per tick, shard by shard: "
+          + "; ".join(f"shard {i}: " + ", ".join(f"{x:.4f}" for x in xs)
+                      for i, xs in enumerate(per_shard))
+          + f"; launches {launches}", flush=True)
+    if res is None or res.private_key != IN64_KEY:
+        raise SystemExit(f"{tag}: in64 did not give the known key")
+    same = (st.ticks, st.count, st.dead, st.lost) == (
+        plain_st.ticks, plain_st.count, plain_st.dead, plain_st.lost)
+    if len(solver.shards) != 2 or not same:
+        raise SystemExit(f"{tag}: the 2-shard walk differs from phase 5s's "
+                         f"(ticks, jumps, dead, lost {st.ticks}, {st.count}, "
+                         f"{st.dead}, {st.lost} against {plain_st.ticks}, "
+                         f"{plain_st.count}, {plain_st.dead}, "
+                         f"{plain_st.lost})")
+    return launches
+
+
+def phase_nwin():
+    """10n: in64 plain with -nbrun 512 -nwin 2 through the solver: each
+    tick walks 2 windows of 512 steps before one drain."""
+    from pathlib import Path
+
+    from kangaroo_torch.core.config import parse_config_file
+    from kangaroo_torch.core.solver import KangarooSolver, SolverOptions
+
+    tag = "10n -nwin"
+    cfg = parse_config_file(
+        str(Path(__file__).resolve().parent / "fixtures" / "in64.txt"))
+    opts = SolverOptions(nb_kangaroo=N_FULL, nb_run=512, windows_per_tick=2,
+                         seed=SEED, device="cuda", quiet=True)
+    _reset_counts()
+    t = time.time()
+    solver = KangarooSolver(cfg, opts)
+    res = solver.solve(0)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = _read_counts(False, tag)
+    st = solver.stats
+    print(f"[{tag}] in64.txt at {N_FULL} lanes, -nbrun 512 -nwin 2, dp "
+          f"{solver.dp_size}, slots {solver.n_slots}: key "
+          f"{hex(res.private_key) if res else None}; wall {wall:.2f} s "
+          f"(herd {st.herd_time:.2f} s, walk {st.time:.2f} s, {st.ticks} "
+          f"ticks, {st.count} jumps, dead {st.dead}, lost {st.lost}); "
+          f"{st.count / st.time / 1e9:.3f} G jumps/s; launches {launches}",
+          flush=True)
+    if res is None or res.private_key != IN64_KEY:
+        raise SystemExit(f"{tag}: in64 did not give the known key")
+    if (solver.windows_per_tick != 2
+            or st.count != st.ticks * 2 * 512 * N_FULL
+            or launches != 2 * st.ticks):
+        raise SystemExit(f"{tag}: the count is not ticks x 2 x 512 x "
+                         f"{N_FULL}")
+    return launches
+
+
+def phase_multihost():
+    """10m: 2 processes over gloo, each walking 2^20 lanes of one herd
+    on the card; returns their launches."""
+    from kangaroo_torch.parallel import multihost
+
+    tag = "10m multi-process"
+    res = multihost.run(procs=2, device="cuda", lanes=1 << 21, steps=256,
+                        dp=DP_FULL, timeout=300)
+    print(f"[{tag}] {res['processes']} processes over gloo on "
+          f"{res['device_name']}, {res['lanes_per_process']} lanes each x "
+          f"{res['steps']} steps, dp {res['dp']}: walk seconds "
+          f"{res['walk_s']}, launches {res['launches']}, plain walk calls "
+          f"{res['plain_calls']}; max |gathered - one process| "
+          f"{res['max_abs_err']}; reduced DP hits {res['reduced_hits']} "
+          f"against {res['one_process_hits']}", flush=True)
+    if (not res["bit_equal"] or res["reduced_hits"] != res["one_process_hits"]
+            or res["reduced_hits"] == 0 or min(res["launches"]) < 1
+            or any(res["plain_calls"])):
+        raise SystemExit(f"{tag}: the multi-process walk is wrong")
+    return sum(res["launches"])
+
+
+def timed(phase, fn, *args, **kw):
+    """fn(*args, **kw), with its seconds printed and kept."""
+    t = time.time()
+    out = fn(*args, **kw)
+    SECONDS[phase] = time.time() - t
+    print(f"[{phase} seconds] {SECONDS[phase]:.1f}", flush=True)
+    return out
+
+
+SECONDS = {}
+
+
 def main():
+    t_main = time.time()
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
-    phase_build()
+    timed("2", phase_build)
     herd, herd_s = _herd(N_FULL, dev)
-    cmp_plain = phase_compare(herd, dev, PLAIN_WINDOWS)
-    ms, bound, by = phase_full(herd, herd_s, dev)
-    del herd
+    cmp_plain = timed("3", phase_compare, herd, dev, PLAIN_WINDOWS)
+    ms, bound, by = timed("4", phase_full, herd, herd_s, dev)
     state, sym_herd_s = _sym_state(dev)
-    cmp_sym = phase_compare(state, dev, SYM_WINDOWS)
-    sym_ms, sym_bound, sym_by = phase_full(state, sym_herd_s, dev, ms)
-    del state
-    launches, _ = phase_solve("in56.txt", IN56_KEY)
-    sym_launches, sym_st = phase_solve("in64.txt", IN64_KEY, sym=True,
-                                       tag="5s solve")
-    _, plain_st = phase_solve("in64.txt", IN64_KEY,
-                              tag="5s solve, plain for comparison")
+    cmp_sym = timed("3s", phase_compare, state, dev, SYM_WINDOWS)
+    sym_ms, sym_bound, sym_by = timed("4s", phase_full, state, sym_herd_s,
+                                      dev, ms)
+    launches, _ = timed("5", phase_solve, "in56.txt", IN56_KEY)
+    sym_launches, sym_st = timed("5s", phase_solve, "in64.txt", IN64_KEY,
+                                 sym=True, tag="5s solve")
+    _, plain_st = timed("5s plain", phase_solve, "in64.txt", IN64_KEY,
+                        tag="5s solve, plain for comparison")
     print(f"[5s jumps] in64 with the same seed: -sym 2^"
           f"{math.log2(sym_st.count):.2f} jumps in {sym_st.ticks} ticks, "
           f"plain 2^{math.log2(plain_st.count):.2f} in {plain_st.ticks} "
           f"ticks (one solve each: the count to a key varies run to run)",
           flush=True)
-    w_save, w_resume = phase_work(False)
-    ws_save, ws_resume = phase_work(True)
-    w_split = phase_wsplit()
+    w_save, w_resume = timed("6", phase_work, False)
+    ws_save, ws_resume = timed("6s", phase_work, True)
+    w_split = timed("6w", phase_wsplit)
     sent = []
-    net = phase_net(False, plain_st, sent)
-    net_sym = phase_net(True, sym_st, sent)
-    wss_save, wss_resume = phase_wss(sent)
-    phase_ingest(sent)
+    net = timed("9", phase_net, False, plain_st, sent)
+    net_sym = timed("9s", phase_net, True, sym_st, sent)
+    wss_save, wss_resume = timed("9w", phase_wss, sent)
+    timed("9v", phase_ingest, sent)
     del sent
+    # 10a walks the herds of phases 3-4s (kept for it: no new k*G)
+    shard_a, shard_a_ms = timed("10a", phase_shard_tick, herd, False)
+    sym_shard_a, sym_shard_a_ms = timed("10a sym", phase_shard_tick, state,
+                                        True)
+    del herd, state
     torch.cuda.empty_cache()
-    cmp_probes = phase_probe_compare(dev)
-    probe_rows, probe_counts = phase_probes()
-    phase_check()
+    shard_b = timed("10b", phase_shard_solve, plain_st)
+    nwin = timed("10n", phase_nwin)
+    multi = timed("10m", phase_multihost)
+    torch.cuda.empty_cache()
+    cmp_probes = timed("7 compare", phase_probe_compare, dev)
+    probe_rows, probe_counts = timed("7", phase_probes)
+    timed("8", phase_check)
     kernels = [
         _entry("plain", launches, cmp_plain, ms, bound, by, {
             "5 in56 solve": launches, "6 in64 saving solve": w_save,
             "6 in64 resume": w_resume, "6w in64 -wsplit solve": w_split,
             "9 in64 client": net, "9w in64 -wss save": wss_save,
-            "9w in64 -wss resume": wss_resume}),
+            "9w in64 -wss resume": wss_resume,
+            "10a two shards": shard_a, "10b in64 2-shard solve": shard_b,
+            "10n in64 -nwin 2": nwin, "10m 2 processes": multi}),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
                sym_by, {"5s in64 -sym solve": sym_launches,
                         "6s in64 -sym saving solve": ws_save,
                         "6s in64 -sym resume": ws_resume,
-                        "9s in64 -sym client": net_sym}),
+                        "9s in64 -sym client": net_sym,
+                        "10a two shards": sym_shard_a}),
     ] + _probe_entries(probe_rows, probe_counts, cmp_probes)
+    kernels[0]["ms_two_shards_10a"] = shard_a_ms
+    kernels[1]["ms_two_shards_10a"] = sym_shard_a_ms
+    print(f"[11 seconds] " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in SECONDS.items())
+          + f"; whole run {time.time() - t_main:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,20 @@
 Flag surface of kangaroo_tpu/cli.py: the standalone solve, plain or
 symmetric (-sym), its work files (checkpoint -w/-wi/-ws/-wsplit/-wt,
 resume -i, the tools -wm/-wmdir/-winfo/-wpartcreate/-wcheck), the
-self-check (-check), the DP server (-s) and its clients (-c, -wss), and
--l.  -nwin and -devices exit non-zero with "not yet ported"; -backend and
--platform, which pick a JAX backend, exit non-zero naming -device.
+self-check (-check), the DP server (-s) and its clients (-c, -wss), -l,
+and the multi-device herd (-devices) with fused launch windows (-nwin).
+-backend and -platform, which pick a JAX backend, exit non-zero naming
+-device.
 
-    python -m kangaroo_torch.cli [-d dp] [-nk n] [-nbrun n] [-m maxStep]
-        [-o file] [-dpcost s] [-sym] [-device cuda|cpu]
-        [-w file [-wi s] [-ws] [-wsplit] [-wt ms]] [-i file] inFile
+    python -m kangaroo_torch.cli [-d dp] [-nk n] [-nbrun n] [-nwin k]
+        [-m maxStep] [-o file] [-dpcost s] [-sym] [-device cuda|cpu]
+        [-devices n] [-w file [-wi s] [-ws] [-wsplit] [-wt ms]] [-i file]
+        inFile
     python -m kangaroo_torch.cli -s -d dp [-sp port] [-nt ms] [-sym]
         [-w file [-wi s] [-wsplit]] [-o file] (inFile | -i workfile)
     python -m kangaroo_torch.cli -c serverIp [-sp port] [-nt ms] [-nk n]
-        [-sym] [-device cuda|cpu] [-w file [-wi s] [-wss]] [-i file]
+        [-sym] [-device cuda|cpu] [-devices n] [-w file [-wi s] [-wss]]
+        [-i file]
     python -m kangaroo_torch.cli [-device cuda|cpu] -check
     python -m kangaroo_torch.cli [-device cuda|cpu] -wcheck file
     python -m kangaroo_torch.cli -winfo file | -wm f1 f2 dest |
@@ -29,8 +32,8 @@ from typing import List, Optional
 
 from .constants import DEFAULT_PORT, RELEASE
 
-# Flags of kangaroo_tpu/cli.py that later slices of the port add.
-NOT_YET_PORTED = ("-nwin", "-devices")
+# Flags of kangaroo_tpu/cli.py that later slices of the port add: none.
+NOT_YET_PORTED = ()
 # Flags of kangaroo_tpu/cli.py that pick a JAX backend or platform; the
 # port's -device does that.
 USE_DEVICE = ("-backend", "-platform")
@@ -41,13 +44,19 @@ def print_usage() -> None:
         """kangaroo-torch [options] inFile
  -v: Print version
  -d dpBit: Specify number of leading zeros for the DP method (default is auto)
- -nk n: Number of kangaroos (herd lanes), default 2^22 on cuda, 2^10 on cpu
+ -nk n: Number of kangaroos (herd lanes, all shards), default 2^22 per
+       card on cuda, 2^10 on cpu
  -nbrun n: Jumps per device tick (default: auto from DP size)
+ -nwin k: Launch windows fused per device dispatch (default: auto;
+       each dispatch costs a host round trip, fusing k windows
+       divides that overhead by k)
  -dpcost s: Host cost per drained DP in seconds used by the auto-DP
        model (default 2e-6)
  -sym: Equivalence-class walk over {P,-P} (~sqrt(2) fewer jumps)
  -device cuda|cpu: Where the walk runs (default cuda; cuda without a
        card is an error)
+ -devices n: Number of mesh devices to use (default all): the herd's
+       lane shards, one per card and stream (on cpu, n CPU shards)
  -check: Check the kernels and field arithmetic against reference
        implementations on -device (exit 0 when all agree)
  -w workfile: Specify file to save work into (current processed key only)
@@ -98,6 +107,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     dp = -1
     nk = 0        # 0: per-device default
     nb_run = 0    # auto
+    nwin = 0      # auto
+    n_devices = 0
     dp_cost = -1.0
     max_step = 0.0
     out_file = ""
@@ -133,6 +144,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             i += 1; nk = int(_arg(argv, i, a))
         elif a == "-nbrun":
             i += 1; nb_run = int(_arg(argv, i, a))
+        elif a == "-nwin":
+            i += 1; nwin = int(_arg(argv, i, a))
+        elif a == "-devices":
+            i += 1; n_devices = int(_arg(argv, i, a))
         elif a == "-dpcost":
             i += 1; dp_cost = float(_arg(argv, i, a))
         elif a == "-device":
@@ -235,9 +250,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .core.solver import KangarooSolver, SolverOptions
 
     if nk <= 0:
-        nk = 1 << 22 if device == "cuda" else 1 << 10
+        # one full wave of the walk kernel per card
+        if device.startswith("cuda"):
+            from .parallel.sharding import resolve_devices
+
+            nk = (1 << 22) * len(resolve_devices(n_devices, device))
+        else:
+            nk = 1 << 10
     opts = SolverOptions(
-        nb_kangaroo=nk, dp_size=dp, nb_run=nb_run, dp_cost=dp_cost,
+        nb_kangaroo=nk, dp_size=dp, nb_run=nb_run, windows_per_tick=nwin,
+        n_devices=n_devices, dp_cost=dp_cost,
         max_step=max_step, out_file=out_file, device=device,
         symmetry=symmetry, work_file=work_file, save_period=save_period,
         save_kangaroo=save_kangaroo, split_work_file=wsplit,
@@ -274,6 +296,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"Stop :{cfg.range_end:X}")
     print(f"Keys :{len(cfg.keys)}")
     print(f"Number of kangaroos: 2^{math.log2(nk):.2f}")
+    shards = solver.shards
+    print(f"Shards: {len(shards)} x {shards[0].hi - shards[0].lo} lanes on "
+          + ", ".join(str(s.device) for s in shards))
     if symmetry:
         print("Symmetry: on (walk over classes {P,-P})")
     suggested_dp = solver.suggest_dp(nk)

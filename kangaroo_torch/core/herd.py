@@ -18,7 +18,9 @@ key); the device carries the signed two's-complement 128-bit distance,
 and each start is normalized into its class {P, -P}: a lane whose y >
 (p-1)/2 takes p - y and the negated distance.
 
-For a given MT19937 stream the herd is bit-equal to the JAX package's.
+For a given MT19937 stream the herd is bit-equal to the JAX package's,
+and a herd made in lane shards (create_herd_shards: one draw for the
+whole herd, each shard's k*G on its own device) is that herd, split.
 The conversions between device and mod-n distances (the JAX herd's
 device_distance and true_distance) are vectorized over lanes in
 `utils.packing` (device_dist_limbs, true_dist_limbs), where the work
@@ -183,3 +185,30 @@ def create_herd(
     types = (np.arange(nb) + first_type) % 2
     return herd_from_draws(r, types, width_div2, key_point, device=device,
                            symmetry=symmetry)
+
+
+def create_herd_shards(
+    nb: int,
+    range_power: int,
+    width_div2: int,
+    key_point: Optional[curve.PointA],
+    shards,
+    first_type: int = 0,
+    rng: Optional[rng_mod.MT19937] = None,
+    symmetry: bool = False,
+):
+    """create_herd for a herd in lane shards (parallel.sharding.Shard:
+    lanes [lo, hi) on a device, with a context for its stream): the
+    distances of all nb kangaroos are drawn from the one stream in lane
+    order, and each shard's positions are made on its device under its
+    stream, lane types by the global lane.  Returns one (px, py, d) per
+    shard, bit-equal to create_herd's herd split at the same lanes."""
+    r = draw_start_words(nb, range_power, rng, symmetry)
+    types = (np.arange(nb) + first_type) % 2
+    out = []
+    for s in shards:
+        with s.walk():
+            out.append(herd_from_draws(
+                r[s.lo:s.hi], types[s.lo:s.hi], width_div2, key_point,
+                device=s.device, symmetry=symmetry))
+    return out

@@ -1,13 +1,18 @@
-"""Single-device solver orchestrator (plain and symmetry walks).
+"""Solver orchestrator (plain and symmetry walks, one or more devices).
 
 Counterpart of Kangaroo::Run + SolveKeyGPU (Kangaroo.cpp:334-506,
 510-644, 913-1083) and of kangaroo_tpu/core/solver.py: the herd lives
-on the device; each tick is one launch of the walk kernel over a window
-of nb_run jumps; the window's DP slots are compacted on the device and
-copied to the host in one read, inserted into the native hash table,
-and collisions are resolved exactly like the reference.  The symmetry
-walk (`-sym`) carries each lane's class beside the herd, signed device
-distances and a key recentred on the middle of the range.
+on the devices in lane shards (parallel/sharding.py: -devices, one
+shard and stream per device, or two on one card); each tick is
+windows_per_tick launches of the walk kernel over a window of nb_run
+jumps on every shard (-nwin).  Each shard's DP slots are compacted on
+its device and copied to the host in one read, bounded by the device
+watchdog (device_timeout); the DPs go into the native hash table in
+walk order with global lane indices, and collisions are resolved
+exactly like the reference.  The symmetry walk (`-sym`) carries each
+lane's class beside the herd, signed device distances and a key
+recentred on the middle of the range.  For the same seed and options
+the walk, the table and the counts do not depend on the shard count.
 
 Work files (-w/-wi/-ws/-wsplit/-wt, -i): a solve checkpoints its table,
 count, time and optionally its herd in the background (`_save_work`),
@@ -26,14 +31,15 @@ from __future__ import annotations
 import math
 import threading
 import time
-from dataclasses import dataclass
-from typing import Callable, Optional
+from dataclasses import dataclass, field
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..constants import HASH_SIZE, N_ORDER, TAME
 from ..io import backup
+from ..parallel import sharding
 from ..utils import packing, rng as rng_mod
 from . import curve, herd as herd_mod
 from .collision import collision_check
@@ -52,8 +58,21 @@ class SolverOptions:
     seed: Optional[int] = None     # herd RNG seed (None: time seed)
     out_file: str = ""             # append solved keys
     quiet: bool = False
-    device: str = "cuda"           # "cuda" or "cpu"
+    # "cuda", "cuda:k" or "cpu", or a sequence of devices, one per shard
+    # (it may repeat a card: two shards on one H100)
+    device: Union[str, Sequence[str]] = "cuda"
     symmetry: bool = False         # -sym: walk classes {P, -P}
+    # -devices: devices to shard the herd over (0 = all; on the CPU,
+    # that many CPU shards).  The shard count follows the JAX solver's
+    # rule (sharding.shard_count).
+    n_devices: int = 0
+    # -nwin: launch windows per tick, drained together (0 = auto: the
+    # JAX solver's rule, engaged only when nb_run is auto too)
+    windows_per_tick: int = 0
+    # device watchdog: a device->host read of a tick that blocks longer
+    # than this many seconds raises DeviceHangError; the solve then
+    # saves its table alone to the work file and returns (0: off)
+    device_timeout: float = 600.0
     # checkpointing (reference -w / -wi / -ws / -wsplit / -wt)
     work_file: str = ""
     save_period: int = 60          # seconds between saves
@@ -78,6 +97,9 @@ class SolveStats:
     saves: int = 0             # background saves started
     save_stall: float = 0.0    # solver-thread seconds spent starting them
     save_wait: float = 0.0     # ... and waiting for a save still running
+    # per drained tick, each shard's seconds in its compaction and copy
+    # (the wait for its window's end included)
+    compact_s: List[Tuple[float, ...]] = field(default_factory=list)
 
 
 # Per-lane DP capture slots are bounded; beyond this many the launch
@@ -134,6 +156,28 @@ class SymmetryMismatch(ValueError):
     """A work file resumed with the other -sym setting."""
 
 
+class DeviceHangError(RuntimeError):
+    """A device->host read exceeded the watchdog's bound."""
+
+
+def windows_per_tick(opts, n_slots: int, auto_window: bool) -> int:
+    """Launch windows per tick: opts.windows_per_tick, or with 0 the JAX
+    solver's auto rule (kangaroo_tpu/core/solver.py:390-411): only when
+    the window is auto too, whole windows until a tick carries ~4096
+    steps, at most 16, and at most ~2 GB of one tick's DP slots (x 10,
+    d 8 and step rows per slot over the whole herd)."""
+    from ..ops import jump_ref
+
+    kw = opts.windows_per_tick
+    if kw:
+        return kw
+    if not auto_window:
+        return 1
+    kw = max(1, min(16, 4096 // opts.nb_run))
+    slot_bytes = n_slots * (jump_ref.DPX_ROWS + 8 + 1) * 4 * opts.nb_kangaroo
+    return max(1, min(kw, int(2e9 / max(1, slot_bytes))))
+
+
 def resolve_device(name: str) -> torch.device:
     """The device an entry point runs on; cuda without a card raises."""
     dev = torch.device(name)
@@ -153,18 +197,26 @@ class KangarooSolver:
 
         self.cfg = cfg
         self.opts = opts
-        self.device = resolve_device(opts.device)
+        self.devices = sharding.resolve_devices(opts.n_devices, opts.device)
+        self.device = self.devices[0]
+        cuda = self.device.type == "cuda"
+        if any((d.type == "cuda") != cuda for d in self.devices):
+            raise ValueError("a herd shards over cards or over the CPU, "
+                             "not both")
         # Herd lanes snap to the walk kernel's lane quantum (blocks tile
         # the herd), as the reference snaps its census to the GPU grid
         # (Kangaroo.cpp:946-961); the quantum is even, so lane parity
         # still picks tame or wild.  The plain CPU walk only needs even.
-        q = jump_cuda.LANE_QUANTUM if self.device.type == "cuda" else 2
+        q = jump_cuda.LANE_QUANTUM if cuda else 2
         nk = opts.nb_kangaroo
         if nk % q:
             opts.nb_kangaroo = nk + (q - nk % q)
             if not opts.quiet:
                 print(f"Warning: -nk {nk} rounded up to {opts.nb_kangaroo} "
                       f"(herd lanes snap to multiples of {q})")
+        # lane shards: on a card each a whole number of kernel blocks
+        self.shards = sharding.make_shards(self.devices, opts.nb_kangaroo,
+                                           q if cuda else 1)
         self.hash_table = make_hash_table()
         self.stats = SolveStats()
         self.key_idx = 0
@@ -276,7 +328,7 @@ class KangarooSolver:
               dp_sink: Optional[Callable] = None,
               save_hook: Optional[Callable] = None):
         """Solve one key.  Returns a SolveResult, or None when stopped
-        by max_ticks, max_step or the sink.
+        by max_ticks, max_step, the sink or the device watchdog.
 
         A repeated solve() of the same key keeps the table, the count
         and the time and continues the walk from last_state; so does
@@ -284,27 +336,32 @@ class KangarooSolver:
         key starts afresh (reference: hashTable.Reset between keys,
         Kangaroo.cpp:1054-1056).
 
-        Client mode: with dp_sink, each window's DPs go to
-        dp_sink(raw, m) as m 40-byte wire records {u32 origin lane,
-        36-byte table record}, in walk order, and not into the table; no
-        lane is reset, and the loop stops when the sink returns True
-        (the server reported the end of the search).  A periodic save
-        then writes a kangaroo-only HEADK file to opts.work_file in the
+        Client mode: with dp_sink, each tick's DPs go to dp_sink(raw, m)
+        as m 40-byte wire records {u32 origin lane, 36-byte table
+        record}, in walk order, and not into the table; no lane is
+        reset, and the loop stops when the sink returns True (the
+        server reported the end of the search).  A periodic save then
+        writes a kangaroo-only HEADK file to opts.work_file in the
         background, or, with save_hook, calls save_hook(solver, px, py,
         d, elapsed) on this thread with the host buffers of the herd's
         snapshot once its copy is done (-wss: the hook shares the
         server connection with the sink).  The next save reuses those
-        buffers: a hook that keeps them copies them."""
+        buffers: a hook that keeps them copies them.
+
+        Watchdog: a tick's device->host read that outlasts
+        opts.device_timeout raises DeviceHangError inside the loop; the
+        solve then writes its table alone to opts.work_file (the -wsplit
+        name with -wsplit; not in client mode, whose table is empty) and
+        returns None (kangaroo_tpu/core/solver.py:1222-1245)."""
         from ..ops import jump_cuda, jump_ref
 
         opts = self.opts
-        dev = self.device
+        shards = self.shards
+        cuda = self.device.type == "cuda"
         sym = opts.symmetry
         self.init_search_key(key_idx)
-        jx, jy, jd = (
-            torch.from_numpy(a.astype(np.int32)).to(dev)
-            for a in create_jump_table(self.range_power, sym).as_arrays()
-        )
+        jt = [torch.from_numpy(a.astype(np.int32))
+              for a in create_jump_table(self.range_power, sym).as_arrays()]
         dp_size = opts.dp_size
         if dp_size < 0:
             dp_size = self.balanced_dp(
@@ -333,6 +390,8 @@ class KangarooSolver:
                       f"(expected ~{exp_loss:.2g} lost DPs per launch "
                       f"window); lower -nbrun or raise -d to eliminate loss")
         self.n_slots = n_slots
+        kw = self.windows_per_tick = windows_per_tick(opts, n_slots,
+                                                      auto_window)
         same_key = self._active_key_idx == key_idx
         if not self.resumed and not same_key:
             self.hash_table.reset()
@@ -345,56 +404,88 @@ class KangarooSolver:
             self.loaded_kangaroos = self.last_state
         self.stats.expected_ops, _, _ = self.compute_expected(
             float(dp_size), opts.nb_kangaroo)
-        dp_masks = jump_ref.dp_limb_masks(dp_size, dev)
+        tables = sharding.replicate(shards, *jt,
+                                    jump_ref.dp_limb_masks(dp_size))
         rng = rng_mod.MT19937(
             opts.seed if opts.seed is not None
             else (time.time_ns() & 0xFFFFFFFF)
         )
         n = opts.nb_kangaroo
         nb_run = opts.nb_run
-        if dev.type == "cuda":
+        if cuda:
             jump_cuda.load()  # an nvcc build belongs to set-up, not the walk
 
         t_herd = time.time()
         if self.loaded_kangaroos is not None:
-            px, py, d = self._restore_herd(self.loaded_kangaroos, rng)
+            herds = sharding.shard_herd(
+                shards, *self._restore_herd(self.loaded_kangaroos, rng))
             self.loaded_kangaroos = None
         else:
-            px, py, d = herd_mod.create_herd(
+            herds = herd_mod.create_herd_shards(
                 n, self.range_power, self.width_div2, self.key_to_search,
-                TAME, rng, device=dev, symmetry=sym,
-            )
-        # each lane's class; a new or restored herd starts normalized, in
-        # class 0 (the reference's restore reallocates symClass zeroed)
-        symclass = (torch.zeros((n,), dtype=torch.int32, device=dev)
-                    if sym else None)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+                shards, TAME, rng, symmetry=sym)
+        # one [px, py, d, symclass] per shard; a new or restored herd
+        # starts normalized, in class 0 (the reference's restore
+        # reallocates symClass zeroed)
+        states = []
+        for sh, h in zip(shards, herds):
+            with sh.walk():
+                states.append(list(h) + [
+                    torch.zeros((sh.hi - sh.lo,), dtype=torch.int32,
+                                device=sh.device) if sym else None])
+        del herds
+        sharding.synchronize(shards)
         self.stats.herd_time = time.time() - t_herd
 
         result = None
-        slot_iota = torch.arange(n_slots, device=dev)[:, None]
         wd2 = self.width_div2
         wd2_sym = wd2 if sym else None
+        tick_fn = sharding.make_sharded_jump_steps(shards, nb_run, n_slots,
+                                                   sym)
 
-        def compact(count, dpx, dpd, step):
-            """On-device DP compaction, then ONE copy to the host.
+        def compact(sh, wins):
+            """One shard's DPs of a tick's windows, compacted on its
+            device on its stream (after the windows, before the shard's
+            next launch) and copied to the host in one read.
 
-            Occupied slot cells from count; nonzero gives the exact hit
-            count (it waits for the window that wrote the slots); the
-            payload is gathered into one (m, 20) int32 block of
-            [x limbs 0..9 | d limbs 0..7 | step | lane].  The lost count
-            is exact: count - min(count, slots).
-            """
-            c2 = torch.clamp(count, max=n_slots)
-            lost = (count - c2).sum()
-            cells = (slot_iota < c2[None, :]).flatten().nonzero().squeeze(1)
-            s_idx, lanes = cells // n, cells % n
-            blk = torch.cat([
-                dpx[s_idx, :, lanes], dpd[s_idx, :, lanes],
-                step[s_idx, lanes][:, None], lanes[:, None].to(torch.int32),
-            ], dim=1)
-            return int(lost), blk.cpu().numpy()
+            Occupied slot cells from each window's count; nonzero gives
+            the exact hit count (it waits for the windows); the payload
+            is gathered into one (m, 20) int32 block of [x limbs 0..9 |
+            d limbs 0..7 | step within the tick (window * nb_run +
+            step) | global lane].  The lost count is exact: count -
+            min(count, slots).  Returns (lost, block)."""
+            with sh.walk():
+                m = sh.hi - sh.lo
+                slot_iota = torch.arange(n_slots, device=sh.device)[:, None]
+                lost, blks = 0, []
+                for w, (count, dpx, dpd, step) in enumerate(wins):
+                    c2 = torch.clamp(count, max=n_slots)
+                    lost = lost + (count - c2).sum()
+                    cells = (slot_iota < c2[None, :]).flatten().nonzero()
+                    cells = cells.squeeze(1)
+                    s_idx, lanes = cells // m, cells % m
+                    blks.append(torch.cat([
+                        dpx[s_idx, :, lanes], dpd[s_idx, :, lanes],
+                        (step[s_idx, lanes] + w * nb_run)[:, None],
+                        (lanes + sh.lo)[:, None].to(torch.int32),
+                    ], dim=1))
+                blk = blks[0] if kw == 1 else torch.cat(blks)
+                return int(lost), blk.cpu().numpy()
+
+        def pull(sh, wins):
+            """compact() under the watchdog (its reads block on the
+            card); the seconds go to stats.compact_s."""
+            t = time.perf_counter()
+            out = self._host_read(lambda: compact(sh, wins))
+            return out, time.perf_counter() - t
+
+        def merged(pulled):
+            """The shards' (lost, block)s as one tick's; their seconds
+            as one stats.compact_s entry."""
+            self.stats.compact_s.append(tuple(sec for _, sec in pulled))
+            blks = [blk for (_, blk), _ in pulled]
+            return (sum(lost for (lost, _), _ in pulled),
+                    blks[0] if len(blks) == 1 else np.concatenate(blks))
 
         def encode_records(blk):
             """Walk-ordered (m, 36) table records, vectorized.
@@ -402,7 +493,8 @@ class KangarooSolver:
             Device distances become the reference's sign/type-flagged
             126-bit D encoding (identical to the per-item true distance
             -- d, or d - rangeWidth/2 on wild lanes; in symmetry mode
-            the signed 128-bit d itself -- then convert).
+            the signed 128-bit d itself -- then convert).  Walk order is
+            (step within the tick, global lane), whatever the shards.
             Returns (records, lanes_in_walk_order).
             """
             steps = blk[:, 18].astype(np.int64)
@@ -430,10 +522,10 @@ class KangarooSolver:
         sink_end = False
 
         def drain(pulled):
-            """Insert one window's DPs; resolve collisions; reset dead
+            """Insert one tick's DPs; resolve collisions; reset dead
             lanes.  Returns True when the key is solved, or in client
             mode when the sink reports the end of the search."""
-            nonlocal px, py, d, symclass, result, sink_end
+            nonlocal result, sink_end
             lost, blk = pulled
             if lost:
                 self.stats.lost += lost
@@ -447,7 +539,7 @@ class KangarooSolver:
             rec, lanes = encode_records(blk)
             m = rec.shape[0]
             if dp_sink is not None:
-                # the wire's kIdx column carries the origin lane
+                # the wire's kIdx column carries the (global) origin lane
                 wire = np.empty((m, 40), dtype=np.uint8)
                 wire[:, 0:4] = lanes.astype("<u4").view(np.uint8).reshape(
                     m, 4)
@@ -478,17 +570,21 @@ class KangarooSolver:
                         self.stats.dead += 1
                         resets.append(int(lanes[off + idx]))
             if resets:
-                px, py, d, symclass = self._reset_lanes(
-                    px, py, d, symclass, resets, rng)
+                self._reset_lanes(states, resets, rng)
             return False
 
-        # Pipelined loop.  Each iteration compacts and copies tick T-1's
-        # DPs (which waits only for that window), launches tick T, then
-        # drains T-1 on the host while T runs on the card.  Dead-lane
-        # resets therefore land one tick late, exactly as in the JAX
-        # solver's loop (dispatch T, then drain T-1), and the same class
-        # of slack as the reference's asynchronous GPU readback
-        # (GPUEngine.cu:607-677).
+        # Pipelined loop.  Each iteration compacts and copies every
+        # shard's tick T-1 DPs, shard by shard (each waits only for its
+        # own shard's T-1 windows), launches tick T's windows on every
+        # shard at once, then drains T-1 on the host while T runs on the
+        # card.  (Compacting T-1 after T's launch would wait for T: a
+        # one-wave walk holds every SM's register file, so no compaction
+        # kernel runs beside it; launching each shard right after its
+        # own compaction lets the shards drift apart, so that one runs
+        # alone on a shared card.)  Dead-lane resets therefore land one
+        # tick late, exactly as in the JAX solver's loop (dispatch T,
+        # then drain T-1), and the same class of slack as the
+        # reference's asynchronous GPU readback (GPUEngine.cu:607-677).
         pending = None
         self.stats.count = self.offset_count
         t0 = time.time()
@@ -496,65 +592,132 @@ class KangarooSolver:
         last_save = t0
         tick = 0
         stop = False
-        while result is None and not stop:
-            if max_ticks is not None and tick >= max_ticks:
-                break
-            if (opts.max_step > 0 and self.stats.count
-                    > opts.max_step * self.stats.expected_ops):
-                break
-            pulled = compact(*pending) if pending is not None else None
-            out = jump_cuda.jump_steps_with_dp(
-                px, py, d, jx, jy, jd, dp_masks, nb_run=nb_run,
-                slots=n_slots, symmetry=sym, symclass=symclass,
-            )
-            px, py, d = out[0], out[1], out[2]
-            pending = out[3:7]
-            if sym:
-                symclass = out[7]
-            self.stats.count += n * nb_run
-            tick += 1
-            if pulled is not None:
-                stop = drain(pulled)
-            now = time.time()
-            if progress is not None and now - last_status > 2.0:
-                progress(self, now - t0)
-                last_status = now
-            if ((opts.work_file or save_hook is not None)
-                    and result is None and not sink_end
-                    and now - last_save > opts.save_period):
-                # tick T's herd (after T-1's resets), the DPs up to T-1
-                # and tick T in the count, as the JAX solver saves
-                if save_hook is not None:
-                    self._run_save_hook(save_hook, px, py, d, now - t0)
-                else:
-                    self._save_work(px, py, d, now - t0,
-                                    kangaroo_only=dp_sink is not None)
-                last_save = now
-        if result is None and not sink_end and pending is not None:
-            drain(compact(*pending))
-        if dev.type == "cuda":
-            # the last dispatched window is in stats.count: finish it, so
-            # that count / time is the rate of work actually done
-            torch.cuda.synchronize(dev)
+        hung = False
+        try:
+            while result is None and not stop:
+                if max_ticks is not None and tick >= max_ticks:
+                    break
+                if (opts.max_step > 0 and self.stats.count
+                        > opts.max_step * self.stats.expected_ops):
+                    break
+                # tick T counts from its start, as the JAX solver counts
+                # a tick at its dispatch (a hang's file holds its count)
+                self.stats.count += n * nb_run * kw
+                tick += 1
+                pulled = (None if pending is None else
+                          [pull(sh, w) for sh, w in zip(shards, pending)])
+                pending = [[] for _ in shards]
+                for _ in range(kw):
+                    for st, w, out in zip(states, pending,
+                                          tick_fn(states, tables)):
+                        st[:3] = out[0:3]
+                        if sym:
+                            st[3] = out[7]
+                        w.append(out[3:7])
+                if pulled is not None:
+                    stop = drain(merged(pulled))
+                now = time.time()
+                if progress is not None and now - last_status > 2.0:
+                    progress(self, now - t0)
+                    last_status = now
+                if ((opts.work_file or save_hook is not None)
+                        and result is None and not sink_end
+                        and now - last_save > opts.save_period):
+                    # tick T's herd (after T-1's resets), the DPs up to
+                    # T-1 and tick T in the count, as the JAX solver saves
+                    if save_hook is not None:
+                        self._run_save_hook(save_hook, states, now - t0)
+                    else:
+                        self._save_work(states, now - t0,
+                                        kangaroo_only=dp_sink is not None)
+                    last_save = now
+            if result is None and not sink_end and pending is not None:
+                drain(merged([pull(sh, w) for sh, w in zip(shards, pending)]))
+            if cuda:
+                # the last dispatched tick is in stats.count: finish it,
+                # so that count / time is the rate of work actually done
+                self._host_read(lambda: sharding.synchronize(shards))
+        except DeviceHangError as e:
+            hung = True
+            self._on_hang(e, dp_sink, time.time() - t0)
         self.stats.ticks = tick
         self.stats.time = self.offset_time + time.time() - t0
-        self.last_state = (px, py, d)
+        self.last_state = sharding.gather_herd(
+            shards, [st[:3] for st in states]) if not hung else None
         # a repeated solve() on this key continues from here
         self.offset_count = self.stats.count
         self.offset_time = self.stats.time
-        self.finish_save()
+        if not hung:
+            self.finish_save()
         if result is not None and opts.out_file:
             self._output(result)
         return result
 
+    def _on_hang(self, err, dp_sink, elapsed):
+        """The watchdog fired: save what the host holds -- the table and
+        the count, not the herd, whose arrays may be unreadable -- to the
+        work file, as the JAX solver does (solver.py:1222-1245); a save
+        still running gets -wt to end first."""
+        opts = self.opts
+        if not opts.quiet:
+            print(f"\nDevice watchdog: {err}")
+        prev = self._save_thread
+        if prev is not None:
+            prev.join(timeout=opts.save_timeout)
+        if not opts.work_file or dp_sink is not None:
+            return
+        if prev is not None and prev.is_alive():
+            if not opts.quiet:
+                print("\nSaveWork timeout !")
+            return
+        name = opts.work_file
+        if opts.split_work_file:
+            name = backup.split_file_name(name)
+        backup.save_work(name, self, None, None, None, self.stats.count,
+                         self.offset_time + elapsed, save_kangaroo=False)
+        if not opts.quiet:
+            print(f"Saved work to {name} (table only); resume with -i "
+                  f"(DP-overhead cost only)")
+
+    def _host_read(self, fn):
+        """fn() -- a blocking device->host read -- under the watchdog: it
+        runs on a daemon thread and raises DeviceHangError when it
+        outlasts opts.device_timeout (0: fn() on this thread).  A hung
+        read leaves its thread blocked; being a daemon, it does not hold
+        the interpreter's exit (the JAX solver's _host_read).  fn makes
+        current whatever device and stream it reads from: a new thread
+        starts on each device's default stream."""
+        to = self.opts.device_timeout
+        if not to:
+            return fn()
+        box = []
+        done = threading.Event()
+
+        def run():
+            try:
+                box.append((True, fn()))
+            except BaseException as e:  # raised on the solver thread
+                box.append((False, e))
+            done.set()
+
+        threading.Thread(target=run, daemon=True,
+                         name="kangaroo-devread").start()
+        if not done.wait(to):
+            raise DeviceHangError(f"device read exceeded {to:.0f}s "
+                                  f"watchdog")
+        ok, val = box[0]
+        if not ok:
+            raise val
+        return val
+
     def _restore_herd(self, state, rng):
-        """A loaded or continued herd (px, py, d), numpy or tensors, on
-        the solver's device, reconciled with -nk (reference:
-        FectchKangaroos fills a shortfall with fresh kangaroos and warns
-        about a surplus, Backup.cpp:283-287): a surplus is cut at the
-        tail, a shortfall filled at the tail by create_herd with
-        first_type = the restored count's parity, so lane parity stays
-        the kangaroo type."""
+        """A loaded or continued herd (px, py, d), numpy or tensors, as
+        tensors on the first shard's device, reconciled with -nk
+        (reference: FectchKangaroos fills a shortfall with fresh
+        kangaroos and warns about a surplus, Backup.cpp:283-287): a
+        surplus is cut at the tail, a shortfall filled at the tail by
+        create_herd with first_type = the restored count's parity, so
+        lane parity stays the kangaroo type."""
         opts = self.opts
         px, py, d = (torch.as_tensor(np.asarray(a, dtype=np.int32))
                      if not isinstance(a, torch.Tensor) else a
@@ -574,52 +737,60 @@ class KangarooSolver:
             )
             px, py, d = (torch.cat(p, dim=1)
                          for p in ((px, fx), (py, fy), (d, fd)))
-        return tuple(t.contiguous() for t in (px, py, d))
+        return px, py, d
 
-    def _snapshot(self, px, py, d):
-        """Copy the herd into host buffers allocated once (pinned on the
-        card) on the walk's stream, right after this tick's launch and
-        its resets and before the next launch, which walks the herd in
-        place.  Returns the buffers and the event a reader waits on
-        (None on the CPU, where the copy is synchronous)."""
-        cuda = px.device.type == "cuda"
-        if self._snap is None or self._snap[0].shape != px.shape:
+    def _snapshot(self, states):
+        """Copy the herd, shard by shard, into host buffers of the whole
+        herd allocated once (pinned on a card), each shard's on its walk
+        stream, right after this tick's launch and its resets and before
+        the next launch, which walks the herd in place.  Returns the
+        buffers and the events a reader waits on (none on the CPU, where
+        the copies are synchronous)."""
+        cuda = self.device.type == "cuda"
+        n = self.opts.nb_kangaroo
+        if self._snap is None or self._snap[0].shape[1] != n:
             self._snap = tuple(
-                torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
-                for t in (px, py, d))
-        for buf, t in zip(self._snap, (px, py, d)):
-            buf.copy_(t, non_blocking=cuda)
-        if not cuda:
-            return self._snap, None
-        ev = torch.cuda.Event()
-        ev.record()
-        return self._snap, ev
+                torch.empty((t.shape[0], n), dtype=t.dtype, pin_memory=cuda)
+                for t in states[0][:3])
+        evs = []
+        for sh, st in zip(self.shards, states):
+            with sh.walk():
+                for buf, t in zip(self._snap, st[:3]):
+                    dst = buf[:, sh.lo:sh.hi]
+                    if dst.is_contiguous():
+                        dst.copy_(t, non_blocking=cuda)
+                    else:  # row by row: each row's lane range is
+                        for r in range(t.shape[0]):  # contiguous
+                            dst[r].copy_(t[r], non_blocking=cuda)
+                if cuda:
+                    evs.append(sh.stream.record_event())
+        return self._snap, evs
 
-    def _run_save_hook(self, hook, px, py, d, elapsed):
+    def _run_save_hook(self, hook, states, elapsed):
         """Client mode's -wss save: the hook gets the snapshot's host
-        buffers on the solver thread, once the copy is done."""
+        buffers on the solver thread, once the copies are done."""
         t0 = time.perf_counter()
-        snap, ev = self._snapshot(px, py, d)
-        if ev is not None:
-            ev.synchronize()
+        snap, evs = self._snapshot(states)
+        if evs:
+            self._host_read(lambda: [ev.synchronize() for ev in evs])
         hook(self, *(b.numpy() for b in snap), elapsed)
         self.stats.saves += 1
         self.stats.save_stall += time.perf_counter() - t0
 
-    def _save_work(self, px, py, d, elapsed, kangaroo_only=False):
+    def _save_work(self, states, elapsed, kangaroo_only=False):
         """Checkpoint without stalling the walk.
 
         The solver thread copies the herd into host buffers on the
-        walk's stream (only with -ws, or for a client's kangaroo-only
-        file), swaps in a fresh table for -wsplit, and starts a writer
-        thread; the writer waits for the copy, packs the herd and writes
-        the table span by span (a drain meanwhile waits for one span at
-        most: a fuzzy snapshot, exact with -wsplit, whose table is
-        frozen), or for a client (kangaroo_only) a HEADK file of the
-        herd alone.  The reference instead pauses all workers for the
-        whole write (Backup.cpp:449-472); -wt bounds the wait for a save
-        that is still running, after which this interval's save is
-        skipped.
+        shards' walk streams (only with -ws, or for a client's
+        kangaroo-only file), swaps in a fresh table for -wsplit, and
+        starts a writer thread; the writer waits for the copies (under
+        the watchdog), packs the herd and writes the table span by span
+        (a drain meanwhile waits for one span at most: a fuzzy snapshot,
+        exact with -wsplit, whose table is frozen), or for a client
+        (kangaroo_only) a HEADK file of the herd alone.  The reference
+        instead pauses all workers for the whole write
+        (Backup.cpp:449-472); -wt bounds the wait for a save that is
+        still running, after which this interval's save is skipped.
         """
         prev = self._save_thread
         if prev is not None and prev.is_alive():
@@ -632,9 +803,9 @@ class KangarooSolver:
                 return
         self._raise_save_error()
         t0 = time.perf_counter()
-        snap, ev = (self._snapshot(px, py, d)
-                    if self.opts.save_kangaroo or kangaroo_only
-                    else (None, None))
+        snap, evs = (self._snapshot(states)
+                     if self.opts.save_kangaroo or kangaroo_only
+                     else (None, []))
         count = self.stats.count
         total_time = self.offset_time + elapsed
         table = self.hash_table
@@ -648,8 +819,8 @@ class KangarooSolver:
 
         def write():
             try:
-                if ev is not None:
-                    ev.synchronize()
+                if evs:
+                    self._host_read(lambda: [ev.synchronize() for ev in evs])
                 herd = ((None,) * 3 if snap is None
                         else tuple(b.numpy() for b in snap))
                 if kangaroo_only:
@@ -680,31 +851,37 @@ class KangarooSolver:
             t.join()
         self._raise_save_error()
 
-    def _reset_lanes(self, px, py, d, symclass, lanes, rng):
+    def _reset_lanes(self, states, lanes, rng):
         """Dead kangaroos draw fresh ones (Kangaroo.cpp:467-471).
 
         Distances are drawn per reset in order (RNG-stream-identical to
         the reference's per-lane CreateHerd(1) calls); the positions are
-        rebuilt in one batch and scattered in one write per array.  A
-        lane reset twice in one batch keeps its last draw.  In symmetry
-        mode a fresh lane starts normalized, in class 0.
+        rebuilt in one batch per shard, on its device and walk stream,
+        and scattered in one write per array.  `lanes` are global, and
+        so is each lane's type (its parity).  A lane reset twice in one
+        batch keeps its last draw.  In symmetry mode a fresh lane starts
+        normalized, in class 0.
         """
         sym = self.opts.symmetry
         r = herd_mod.draw_start_words(len(lanes), self.range_power, rng, sym)
         last = {lane: i for i, lane in enumerate(lanes)}
-        keep = sorted(last.values())
-        types = np.array([lanes[i] % 2 for i in keep])
-        npx, npy, nd = herd_mod.herd_from_draws(
-            r[keep], types, self.width_div2, self.key_to_search,
-            device=px.device, symmetry=sym,
-        )
-        idx = torch.tensor([lanes[i] for i in keep], device=px.device)
-        px[:, idx] = npx
-        py[:, idx] = npy
-        d[:, idx] = nd
-        if sym:
-            symclass[idx] = 0
-        return px, py, d, symclass
+        keep = np.array(sorted(last.values()), dtype=np.int64)
+        glob = np.array(lanes, dtype=np.int64)[keep]
+        for sh, st in zip(self.shards, states):
+            sel = (glob >= sh.lo) & (glob < sh.hi)
+            if not sel.any():
+                continue
+            with sh.walk():
+                npx, npy, nd = herd_mod.herd_from_draws(
+                    r[keep[sel]], glob[sel] % 2, self.width_div2,
+                    self.key_to_search, device=sh.device, symmetry=sym,
+                )
+                idx = torch.from_numpy(glob[sel] - sh.lo).to(sh.device)
+                st[0][:, idx] = npx
+                st[1][:, idx] = npy
+                st[2][:, idx] = nd
+                if sym:
+                    st[3][idx] = 0
 
     def _output(self, res):
         """Append the solved key (reference: Output, Kangaroo.cpp:176-213)."""

@@ -238,12 +238,13 @@ def run_client(
     """Client mode main loop (reference: clientMode branches of Run).
 
     The server's range, key and DP size replace opts'; the walk runs on
-    opts.device.  -i (load_file) restores the herd from a local HEADK or
-    HEADKS file; -wss (save_kangaroo_server with opts.work_file) saves
-    the herd through the server every save period and restores it from
-    there at start.  Raises ServerUnreachable when a lost server does
-    not come back within reconnect_timeout seconds; the unsent DPs are
-    then in the .penddp file beside opts.work_file."""
+    opts.device, in opts.n_devices shards.  -i (load_file) restores the
+    herd from a local HEADK or HEADKS file; -wss (save_kangaroo_server
+    with opts.work_file) saves the herd through the server every save
+    period and restores it from there at start.  Raises
+    ServerUnreachable when a lost server does not come back within
+    reconnect_timeout seconds; the unsent DPs are then in the .penddp
+    file beside opts.work_file."""
     from ..core.solver import KangarooSolver
 
     conn = ServerConnection(server_ip, port, timeout)
@@ -258,7 +259,7 @@ def run_client(
         solver.init_search_key(0)
         report = ClientReport(solver)
         wss = save_kangaroo_server and bool(opts.work_file)
-        rebuild = dict(symmetry=opts.symmetry, device=opts.device)
+        rebuild = dict(symmetry=opts.symmetry, device=solver.device)
         if load_file:
             solver.loaded_kangaroos = backup.load_kangaroo_file(
                 load_file, cfg.range_start, cfg.range_end,

@@ -13,9 +13,11 @@ client, a kangaroo_tpu client and a kangaroo_torch client all connect.
 Two differences from kangaroo_tpu's server, by design:
   * a client that is connected when the search ends is not dropped
     mid-exchange: its handler waits for the client's next command (at
-    most `timeout` seconds) and answers a STATUS or SENDDP with
-    SERVER_END, so that the client hears the end instead of finding the
-    server gone and reconnecting;
+    most `timeout` seconds plus twice the longest gap between the
+    client's earlier commands, so that a client whose ticks are long
+    hears it too) and answers a STATUS or SENDDP with SERVER_END, so
+    that the client hears the end instead of finding the server gone and
+    reconnecting;
   * -wss backups and point validation are whole-array numpy and device
     work: the kangaroo checksum is summed column by column, and the
     points of a batch are re-derived in one `_check_batch` call on
@@ -99,6 +101,8 @@ class DPServer:
         self.saving = False
         self._save_thread: Optional[threading.Thread] = None
         self._handlers: List[threading.Thread] = []
+        # the longest gap between two commands of one client (seconds)
+        self._max_gap = 0.0
         # (file, kangaroos, receive s, checksum s, write s) of the last
         # kangaroo backup a client sent
         self.last_backup = None
@@ -133,16 +137,18 @@ class DPServer:
         return proto.SERVER_OK
 
     # -- client handler (one thread per connection) -----------------------
-    def _next_command(self, conn: socket.socket) -> Optional[int]:
+    def _next_command(self, conn: socket.socket,
+                      gap: float = 0.0) -> Optional[int]:
         """The client's next command byte, or None when it closed the
         connection, sent nothing for CLIENT_TIMEOUT seconds, or sent
-        nothing within `timeout` seconds of the end of the search."""
+        nothing within `timeout` + 2 * gap seconds of the end of the
+        search (gap: the longest it took between two earlier commands)."""
         now = time.time()
         idle_limit = now + CLIENT_TIMEOUT
         end_limit = None
         while True:
             if self.end_of_search and end_limit is None:
-                end_limit = time.time() + self.timeout
+                end_limit = time.time() + self.timeout + 2 * gap
             left = min(idle_limit, end_limit or idle_limit) - time.time()
             if left <= 0:
                 return None
@@ -157,10 +163,19 @@ class DPServer:
         nb_kangaroo = 0
         try:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            gap, last = 0.0, None
             while True:
-                c = self._next_command(conn)
+                c = self._next_command(conn, gap)
                 if c is None:
                     break
+                # a client's ticks set its pace: the end of the search
+                # waits for the slowest one's next command
+                now = time.time()
+                if last is not None and now - last > gap:
+                    gap = now - last
+                    with self.lock:
+                        self._max_gap = max(self._max_gap, gap)
+                last = now
                 if c == proto.SERVER_GETCONFIG:
                     key = self.cfg.keys[self.key_idx]
                     proto.send_all(conn, proto.pack_config(
@@ -435,8 +450,8 @@ class DPServer:
     ) -> Optional[SolveResult]:
         """Serve until the key is found (or max_seconds pass); returns
         the result.  Before it returns it gives each connected client
-        up to `timeout` seconds to send its next command and read
-        SERVER_END."""
+        up to `timeout` seconds plus twice its longest gap between
+        commands to send its next command and read SERVER_END."""
         self.quiet = quiet
         srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -510,7 +525,7 @@ class DPServer:
             self._process_once()
         finally:
             srv.close()
-        limit = time.time() + self.timeout + 2 * POLL
+        limit = time.time() + self.timeout + 2 * self._max_gap + 2 * POLL
         for h in self._handlers:
             h.join(timeout=max(0.0, limit - time.time()))
         if self.result is not None and not quiet:

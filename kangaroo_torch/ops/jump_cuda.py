@@ -174,19 +174,23 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def occupancy(n: int, symmetry: bool = False) -> dict:
+def occupancy(n: int, symmetry: bool = False, device=None) -> dict:
     """Registers and local bytes per thread, static shared bytes per
     block and resident blocks per SM of the plain or the symmetry walk
-    kernel (kt_walk_occupancy), and what they make of a launch of n
-    lanes: its blocks, whether they fit in one wave on the card's SMs,
-    and the warps per scheduler (4 per SM) while it runs."""
+    kernel (kt_walk_occupancy) on `device` (default: the current card),
+    and what they make of a launch of n lanes there: its blocks, whether
+    they fit in one wave on the card's SMs, and the warps per scheduler
+    (4 per SM) while it runs."""
     lib = load()
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if device is None else torch.device(device)
     out = (ctypes.c_int * 4)()
-    err = lib.kt_walk_occupancy(int(symmetry), out)
+    with torch.cuda.device(dev):
+        err = lib.kt_walk_occupancy(int(symmetry), out)
     if err:
         raise RuntimeError(f"walk kernel attributes: "
                            f"{lib.kt_error_string(err).decode()}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     blocks = n // LANE_QUANTUM
     resident = min(blocks, out[3] * sms)
     return {"regs": out[0], "local_bytes": out[1], "smem": out[2],
@@ -206,10 +210,10 @@ def _check(t: torch.Tensor, name: str, shape, device) -> None:
 
 def check_walk_args(px, py, d, jx, jy, jd, dp_masks, nb_run: int,
                     slots: int, symclass: Optional[torch.Tensor] = None,
-                    group: int = GROUP):
+                    group: int = GROUP, alloc: bool = True):
     """Check a window's arguments as the walk kernels take them at G =
-    group lanes per thread, and allocate its zeroed slot outputs;
-    returns (count, dpx, dpd, step)."""
+    group lanes per thread, and (with alloc) allocate its zeroed slot
+    outputs; returns (count, dpx, dpd, step), or None without alloc."""
     n = px.shape[1]
     dev = px.device
     quantum = THREADS * group
@@ -228,12 +232,15 @@ def check_walk_args(px, py, d, jx, jy, jd, dp_masks, nb_run: int,
         checks.append((symclass, "symclass", (n,)))
     for t, name, shape in checks:
         _check(t, name, shape, dev)
-    count = torch.zeros((n,), dtype=torch.int32, device=dev)
-    dpx = torch.zeros((slots, jump_ref.DPX_ROWS, n), dtype=torch.int32,
-                      device=dev)
-    dpd = torch.zeros((slots, 8, n), dtype=torch.int32, device=dev)
-    step = torch.zeros((slots, n), dtype=torch.int32, device=dev)
-    return count, dpx, dpd, step
+    return _slot_outputs(n, slots, dev) if alloc else None
+
+
+def _slot_outputs(n: int, slots: int, device) -> tuple:
+    """A window's zeroed (count, dpx, dpd, step)."""
+    z = dict(dtype=torch.int32, device=device)
+    return (torch.zeros((n,), **z),
+            torch.zeros((slots, jump_ref.DPX_ROWS, n), **z),
+            torch.zeros((slots, 8, n), **z), torch.zeros((slots, n), **z))
 
 
 def window_scratch(n: int, device) -> torch.Tensor:
@@ -242,9 +249,19 @@ def window_scratch(n: int, device) -> torch.Tensor:
     return torch.empty((SCRATCH_ROWS, n), dtype=torch.int32, device=device)
 
 
+def window_buffers(n: int, slots: int, device) -> tuple:
+    """A window's zeroed slot outputs (count, dpx, dpd, step) and its
+    scratch, made ahead of the launch (`jump_steps_with_dp(buffers=)`):
+    a device allocation issued between two streams' launches keeps them
+    from running at once, so the sharded window allocates every shard's
+    buffers before it launches any."""
+    return _slot_outputs(n, slots, device) + (window_scratch(n, device),)
+
+
 def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
                        slots: int = 2, symmetry: bool = False,
-                       symclass: Optional[torch.Tensor] = None):
+                       symclass: Optional[torch.Tensor] = None,
+                       buffers: Optional[tuple] = None):
     """nb_run jumps per lane; returns (px, py, d, count, dpx, dpd, step),
     and symclass last in symmetry mode.
 
@@ -253,9 +270,12 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
     symmetry mode).  On the card the herd and the symmetry class
     (zeros when symclass is None) are updated IN PLACE: the returned
     px/py/d/symclass are the input tensors.  The slot outputs are fresh
-    zeroed tensors; the window's packed state goes to scratch allocated
-    here.  The launch goes on the current stream and does not
-    synchronize.
+    zeroed tensors, and the window's packed state goes to scratch,
+    allocated here or taken from `buffers` (window_buffers: zeroed, of
+    this window's lanes and slots, on px's device).  The launch goes on
+    px's device, made current for it (the kernel launches on the calling
+    thread's current device), and on that device's current stream; it
+    does not synchronize.
     """
     if not px.is_cuda:
         return jump_ref.jump_steps_with_dp(
@@ -266,18 +286,31 @@ def jump_steps_with_dp(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
     n = px.shape[1]
     if symmetry and symclass is None:
         symclass = torch.zeros((n,), dtype=torch.int32, device=px.device)
-    count, dpx, dpd, step = check_walk_args(
-        px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
-        symclass if symmetry else None)
+    if buffers is None:
+        count, dpx, dpd, step = check_walk_args(
+            px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
+            symclass if symmetry else None)
+        scratch = window_scratch(n, px.device)
+    else:
+        check_walk_args(px, py, d, jx, jy, jd, dp_masks, nb_run, slots,
+                        symclass if symmetry else None, alloc=False)
+        count, dpx, dpd, step, scratch = buffers
+        for t, name, shape in (
+                (count, "count", (n,)),
+                (dpx, "dpx", (slots, jump_ref.DPX_ROWS, n)),
+                (dpd, "dpd", (slots, 8, n)), (step, "step", (slots, n)),
+                (scratch, "scratch", (SCRATCH_ROWS, n))):
+            _check(t, name, shape, px.device)
     lib = load()
-    scratch = window_scratch(n, px.device)
-    err = lib.kt_jump_steps(
-        px.data_ptr(), py.data_ptr(), d.data_ptr(), jx.data_ptr(),
-        jy.data_ptr(), jd.data_ptr(), dp_masks.data_ptr(), n, nb_run, slots,
-        count.data_ptr(), dpx.data_ptr(), dpd.data_ptr(), step.data_ptr(),
-        symclass.data_ptr() if symmetry else None, scratch.data_ptr(),
-        torch.cuda.current_stream(px.device).cuda_stream,
-    )
+    with torch.cuda.device(px.device):
+        err = lib.kt_jump_steps(
+            px.data_ptr(), py.data_ptr(), d.data_ptr(), jx.data_ptr(),
+            jy.data_ptr(), jd.data_ptr(), dp_masks.data_ptr(), n, nb_run,
+            slots, count.data_ptr(), dpx.data_ptr(), dpd.data_ptr(),
+            step.data_ptr(), symclass.data_ptr() if symmetry else None,
+            scratch.data_ptr(),
+            torch.cuda.current_stream(px.device).cuda_stream,
+        )
     if err:
         raise RuntimeError(
             f"walk kernel launch failed: {lib.kt_error_string(err).decode()}"

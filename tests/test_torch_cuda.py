@@ -349,3 +349,61 @@ def test_server_validation_on_card(card, symmetry):
     srv._process_once()
     assert len(arr) > 1000 and srv.rejected == int(bad.sum())
     assert srv.hash_table.n_items() + srv.dead == len(arr) - int(bad.sum())
+
+
+def _walk_inputs(card, n, symmetry=False):
+    rp = 64
+    state = herd.create_herd(n, rp, ((1 << rp) - 1) >> 1,
+                             curve.mul(0xDEADBEEF12345), 0, MT19937(7),
+                             device=card, symmetry=symmetry)
+    tabs = [torch.from_numpy(a.astype("int32")).to(card)
+            for a in create_jump_table(rp, symmetry).as_arrays()]
+    return state, tabs + [jump_ref.dp_limb_masks(8, card)]
+
+
+@pytest.mark.cuda
+def test_launch_on_a_card_that_is_not_current(card):
+    """A herd on cuda:0 launched while cuda:1 is current runs on cuda:0
+    (the wrapper makes px's device current) and equals the launch made
+    with cuda:0 current."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    state, tabs = _walk_inputs(card, jump_cuda.LANE_QUANTUM)
+    want = jump_cuda.jump_steps_with_dp(*[t.clone() for t in state], *tabs,
+                                        nb_run=16, slots=2)
+    with torch.cuda.device(1):
+        got = jump_cuda.jump_steps_with_dp(*[t.clone() for t in state],
+                                           *tabs, nb_run=16, slots=2)
+    torch.cuda.synchronize(card)
+    for name, a, b in zip(NAMES, got, want):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_two_shards_on_one_card_equal_one_launch(card, symmetry):
+    """Two lane shards on one card, each on its own stream (the sharded
+    window of parallel/sharding.py), bit-equal to one launch over the
+    whole herd, symclass included."""
+    from kangaroo_torch.parallel import sharding
+
+    n = 2 * jump_cuda.LANE_QUANTUM
+    state, tabs = _walk_inputs(card, n, symmetry)
+    sc = torch.zeros(n, dtype=torch.int32, device=card)
+    want = jump_cuda.jump_steps_with_dp(
+        *[t.clone() for t in state], *tabs, nb_run=32, slots=2,
+        symmetry=symmetry, symclass=sc.clone() if symmetry else None)
+    shards = sharding.make_shards([card, card], n, jump_cuda.LANE_QUANTUM)
+    assert len(shards) == 2 and shards[0].stream != shards[1].stream
+    herds = [list(h) + [h[3] if symmetry else None]
+             for h in sharding.shard_herd(shards, *state, sc)]
+    tick = sharding.make_sharded_jump_steps(shards, 32, 2, symmetry)
+    launches = jump_cuda.SYM_LAUNCHES if symmetry else jump_cuda.LAUNCHES
+    outs = tick(herds, sharding.replicate(shards, *tabs))
+    sharding.synchronize(shards)
+    now = jump_cuda.SYM_LAUNCHES if symmetry else jump_cuda.LAUNCHES
+    assert now == launches + 2
+    got = [torch.cat([o[k] for o in outs], dim=-1) for k in range(len(want))]
+    for name, a, b in zip(NAMES + ("symclass",), got, want):
+        assert torch.equal(a, b), name
+    assert int(got[3].sum()) > 0

@@ -30,13 +30,16 @@ TPU_SCRIPTS = ("scripts", "pkbench", "probe_ops", "pkdelta", "pkinv",
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "kangaroo_tpu"))
              or m.split(".")[0] in TPU_SCRIPTS)
-# the work-file and network modules are among those imported
+# the work-file, network and multi-device modules are among those
+# imported
 missing = [m for m in ("kangaroo_torch.io.backup", "kangaroo_torch.io.merge",
                        "kangaroo_torch.utils.packing",
                        "kangaroo_torch.native", "kangaroo_torch.core.check",
                        "kangaroo_torch.net.protocol",
                        "kangaroo_torch.net.server",
-                       "kangaroo_torch.net.client")
+                       "kangaroo_torch.net.client",
+                       "kangaroo_torch.parallel.sharding",
+                       "kangaroo_torch.parallel.multihost")
            if m not in names]
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)

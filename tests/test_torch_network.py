@@ -468,6 +468,23 @@ def test_handler_gives_up_a_silent_client_after_the_end():
         conn.close()
 
 
+def test_handler_waits_for_a_slow_client_after_the_end():
+    """A client whose commands come 1 s apart (long ticks) still hears
+    SERVER_END 1.5 s after the end, three times the server's 0.5 s
+    timeout: the handler waits twice the client's longest gap more."""
+    srv = port_server(timeout=0.5)
+    with serving(srv):
+        conn = ServerConnection("127.0.0.1", srv.port, timeout=5.0)
+        conn.connect()
+        conn.get_config()
+        time.sleep(1.0)
+        assert conn.get_status() == proto.SERVER_OK
+        srv.end_of_search = True
+        time.sleep(1.5)
+        assert conn.get_status() == proto.SERVER_END
+        conn.close()
+
+
 def test_wait_for_server_gives_up_within_its_bound():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

@@ -148,10 +148,16 @@ def test_cli_solves_in32_sym_on_cpu():
 
 
 def test_cli_rejects_flags_not_yet_ported():
-    for flag in ("-nwin", "-devices"):
-        r = _cli(flag, "x", IN32, timeout=120)
-        assert r.returncode != 0
-        assert "not yet ported" in r.stdout
+    """Every flag of the JAX CLI is ported (-nwin and -devices parse and
+    show in the usage); the JAX backend and platform flags are refused
+    with a message that names -device."""
+    from kangaroo_torch import cli
+
+    assert cli.NOT_YET_PORTED == ()
+    r = _cli("-nwin", "2", "-devices", "2", "-h", timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "not yet ported" not in r.stdout
+    assert " -nwin k:" in r.stdout and " -devices n:" in r.stdout
     # the JAX backend and platform flags: -device takes their place
     for flag in ("-backend", "-platform"):
         r = _cli(flag, "x", IN32, timeout=120)
