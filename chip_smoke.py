@@ -4,11 +4,11 @@
 Drives the port's main paths on one CUDA card -- the solve, its work
 files (checkpoint, resume, -wsplit merge, -winfo, -wcheck), the probe
 entry points, -check, the network, the multi-device herd (two lane
-shards, on two cards or side by side on one), fused launch windows and
-the multi-process herd -- and holds every kernel against its plain
-PyTorch version, phase by phase; any fault raises and the exit code is
-non-zero.  Each phase prints its seconds.  Run from the repository
-root:
+shards, on two cards or side by side on one), fused launch windows, the
+multi-process herd and STATS batches of many keys -- and holds every
+kernel against its plain PyTorch version, phase by phase; any fault
+raises and the exit code is non-zero.  Each phase prints its seconds.
+Run from the repository root:
 
     python3 chip_smoke.py
 
@@ -100,7 +100,25 @@ Phases:
      each walking 2^20 lanes of one herd for 256 steps through the
      kernel: the gathered walk bit-equal to one process's, the reduced
      DP hits equal to its;
-  11. the kernels line (launches by path, the new paths' included), the
+  11. (runs after 10m, before 7) STATS: keys 0..STATS_KEYS-1 of
+     fixtures/in40_1000.txt solved as a batch through one solver object
+     (kangaroo_torch.stats_batch run_batch, seed SEED + i for key i),
+     plain in this process and -sym in a child process at the same
+     time, at one 8192-lane block, dp 4, 4 steps a tick (a tick is sqrt(N)/32
+     jumps; nk * 2^dp is the stock run's 2^10 * 2^7, so the model is
+     the stock stream's, 2.160*sqrt(N), and 1.527*sqrt(N) with -sym):
+     every key the stock binary's Priv (hw_evidence/stats_ref1000_r05.txt)
+     and priv*G the key; each batch through its own kernel only; the
+     plain mean of ops/sqrt(N) within 5 standard errors of its model
+     plus the loop's lag (0 to 3 ticks), the -sym mean within 5 of the
+     port's measured 1000-key -sym mean (SYM_MEAN_1000: the -sym walk
+     misses its model) and below the plain mean on the same keys; then
+     the kernel against the plain walk on key 0's herd at the batch's
+     window (4 steps, dp 4, the solver's slots), 4 windows in a row,
+     tolerance 0, in both modes; prints per mode the mean +- SE, dead,
+     ticks, herd and walk seconds per key, the stock stream's mean and
+     dead on the same keys, and the plain/-sym ratio beside sqrt(2);
+  12. the kernels line (launches by path, the new paths' included), the
      card line and the result line.
 """
 
@@ -139,6 +157,21 @@ SYM_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 256, False))
 CMP_LANES_PER_BLOCK = 4
 CMP_INV_ROUNDS = 1
 CMP_INNER = 256
+# phase 11: keys of fixtures/in40_1000.txt per STATS batch, and the
+# batch's herd (one walk-kernel block), DP and steps per tick
+STATS_KEYS = 100
+STATS_NK = 1 << 13
+STATS_DP = 4
+STATS_NBRUN = 4
+# windows in a row of phase 11's kernel-vs-plain check on the batch's
+# first herd
+STATS_CMP_WINDOWS = 4
+# the port's -sym mean ops/sqrt(N) and its standard error over all 1000
+# keys at phase 11's options (python -m kangaroo_torch.stats_batch
+# fixtures/in40_1000.txt 13 4 4 1 -sym, time seeds, NVIDIA H100 80GB
+# HBM3 at 700 W; PERF.md section 6): the -sym walk misses its model
+# (1.527), so the batch's -sym mean is held to this measurement
+SYM_MEAN_1000 = (2.0756, 0.0330)
 
 
 def phase_device():
@@ -1428,6 +1461,185 @@ def phase_multihost():
     return sum(res["launches"])
 
 
+def phase_stats(sym):
+    """11: a STATS batch of STATS_KEYS keys of in40_1000 through the
+    solver on the card, held key by key against the stock binary's
+    stream, then the kernel against the plain walk on its first herd;
+    returns (launches, mean ops/sqrt(N), the check's largest error)."""
+    from pathlib import Path
+
+    from kangaroo_torch import stats_batch, stats_summary
+    from kangaroo_torch.core import curve
+    from kangaroo_torch.core.config import parse_config_file
+    from kangaroo_torch.core.solver import SolverOptions
+
+    tag = "11 STATS" + (" -sym" if sym else " plain")
+    root = Path(__file__).resolve().parent
+    cfg = parse_config_file(str(root / "fixtures" / "in40_1000.txt"))
+    ref = stats_summary.read_ref(
+        str(root / "hw_evidence" / "stats_ref1000_r05.txt"))
+    opts = SolverOptions(nb_kangaroo=STATS_NK, dp_size=STATS_DP,
+                         nb_run=STATS_NBRUN, windows_per_tick=1,
+                         device="cuda", quiet=True, symmetry=sym)
+    keys = range(STATS_KEYS)
+    _reset_counts()
+    t = time.time()
+    rows = stats_batch.run_batch(cfg, opts, keys, seed0=SEED)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    launches = _read_counts(sym, tag)
+    sqrt_n = stats_batch.sqrt_range(cfg)
+    m, se = stats_summary.mean_se([r.count / sqrt_n for r in rows])
+    model = rows[0].expected / sqrt_n
+    lag = 3 * STATS_NK * STATS_NBRUN / sqrt_n
+    n = len(rows)
+
+    def per(f):
+        return sum(f(r) for r in rows) / n
+
+    ref_m = sum(ref[k][0] for k in keys) / n / sqrt_n
+    ref_dead = sum(ref[k][1] for k in keys) / n
+    print(f"[{tag}] in40_1000.txt keys 0..{n - 1}, {opts.nb_kangaroo} "
+          f"lanes, dp {opts.dp_size}, nb_run {opts.nb_run}, a tick "
+          f"{opts.nb_kangaroo * opts.nb_run / sqrt_n:.4f}*sqrt(N): "
+          f"ops/sqrtN mean {m:.4f} +- {se:.4f} (SE) against the model "
+          f"{model:.4f} (+ lag 0..{lag:.4f}; mean - model "
+          f"{(m - model) / se:+.2f} SE); per key dead "
+          f"{per(lambda r: r.dead):.3f} (duplicate DPs "
+          f"{per(lambda r: r.dup):.3f}), ticks {per(lambda r: r.ticks):.2f},"
+          f" herd {per(lambda r: r.herd_s):.4f} s, walk "
+          f"{per(lambda r: r.walk_s):.4f} s; stock stream on the same keys "
+          f"{ref_m:.4f}*sqrt(N), dead {ref_dead:.3f}; wall {wall:.1f} s; "
+          f"launches {launches}", flush=True)
+    bad = [r.key for r in rows
+           if r.priv is None or r.priv != ref[r.key][2]
+           or curve.mul(r.priv) != cfg.keys[r.key]]
+    if bad:
+        raise SystemExit(f"{tag}: keys {bad[:10]} differ from the stock "
+                         f"stream's Priv (or priv*G from the key)")
+    if launches != sum(r.ticks for r in rows):
+        raise SystemExit(f"{tag}: {launches} launches for "
+                         f"{sum(r.ticks for r in rows)} ticks")
+    if sym:
+        # the measured 1000-key mean, which carries the same lag
+        want, want_se = SYM_MEAN_1000
+        tol = 5 * math.hypot(se, want_se)
+        print(f"[{tag}] against the port's 1000-key -sym mean {want:.4f} "
+              f"+- {want_se:.4f}: {(m - want) / math.hypot(se, want_se):+.2f}"
+              f" SE (the model {model:.4f} is missed: PERF.md section 7)",
+              flush=True)
+        lo, hi = want - tol, want + tol
+    else:
+        lo, hi = model - 5 * se, model + lag + 5 * se
+    if not lo <= m <= hi:
+        raise SystemExit(f"{tag}: mean {m:.4f} (SE {se:.4f}) is not in "
+                         f"[{lo:.4f}, {hi:.4f}]")
+    cmp_err = _stats_compare(cfg, opts, tag)
+    return launches, m, cmp_err
+
+
+def _stats_compare(cfg, opts, tag):
+    """11: the walk kernel against the plain walk on the batch's first
+    herd (key 0's, drawn from seed SEED as the solver draws it) at the
+    batch's window: nb_run steps at its DP with the slot count the
+    solver picks, STATS_CMP_WINDOWS windows in a row, each window's
+    inputs the kernel's last outputs; tolerance 0.  These launches come
+    after the batch's counts were read.  Returns the largest error."""
+    from kangaroo_torch.constants import TAME
+    from kangaroo_torch.core import herd as herd_mod
+    from kangaroo_torch.core.jumptable import create_jump_table
+    from kangaroo_torch.core.solver import KangarooSolver, slots_for_window
+    from kangaroo_torch.ops import jump_cuda, jump_ref
+    from kangaroo_torch.utils import rng as rng_mod
+
+    sym = opts.symmetry
+    solver = KangarooSolver(cfg, opts)
+    solver.init_search_key(0)
+    slots = slots_for_window(opts.nb_run, opts.dp_size, opts.nb_kangaroo)
+    (herd,) = herd_mod.create_herd_shards(
+        opts.nb_kangaroo, solver.range_power, solver.width_div2,
+        solver.key_to_search, solver.shards, TAME, rng_mod.MT19937(SEED),
+        symmetry=sym)
+    dev = herd[0].device
+    state = list(herd) + ([torch.zeros(opts.nb_kangaroo, dtype=torch.int32,
+                                       device=dev)] if sym else [])
+    tabs = [torch.from_numpy(a.astype("int32")).to(dev)
+            for a in create_jump_table(solver.range_power, sym).as_arrays()]
+    masks = jump_ref.dp_limb_masks(opts.dp_size, dev)
+    worst, dps, flips = 0, 0, 0
+    for _ in range(STATS_CMP_WINDOWS):
+        k = _walk(jump_cuda.jump_steps_with_dp, [t.clone() for t in state],
+                  tabs, masks, opts.nb_run, slots)
+        p = _walk(jump_ref.jump_steps_with_dp, [t.clone() for t in state],
+                  tabs, masks, opts.nb_run, slots)
+        errs = _errors(k, p, sym)
+        worst = max(worst, max(errs.values()))
+        if max(errs.values()) != 0:
+            raise SystemExit(f"{tag}: kernel disagrees with the plain walk "
+                             f"on the batch's herd: {errs}")
+        dps += int(p[3].sum())
+        if sym:
+            flips += int((k[7] != state[3]).sum())
+        state = list(k[:3]) + ([k[7]] if sym else [])
+    print(f"[{tag} compare] key 0's herd, {opts.nb_kangaroo} lanes, "
+          f"{STATS_CMP_WINDOWS} windows of {opts.nb_run} steps at dp "
+          f"{opts.dp_size}, {slots} slots: {dps} DPs"
+          + (f", {flips} class changes" if sym else "")
+          + f"; max |kernel - plain| {worst}", flush=True)
+    if dps == 0 or (sym and flips == 0):
+        raise SystemExit(f"{tag}: the compared windows met no DP"
+                         + (" or no class change" if sym else ""))
+    return worst
+
+
+# phase 11's -sym batch, run in a process of its own beside the plain
+# one: both are bound by the host (a k*G and a drain per few ticks of
+# one block), so together they take the longer one's time
+STATS_CHILD = """
+import json, sys
+sys.path.insert(0, ".")
+import chip_smoke
+launches, mean, err = chip_smoke.phase_stats(True)
+print(json.dumps({"launches": launches, "mean": mean, "err": err}))
+"""
+
+
+def phase_stats_pair():
+    """11: the plain batch here and the -sym batch in a child process at
+    the same time (each counts its own kernel's launches); returns
+    ((launches, mean, err) plain, (launches, mean, err) -sym), err the
+    kernel-vs-plain check's; fails unless the -sym mean lies below the
+    plain one on the same keys."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t = time.time()
+    child = subprocess.Popen([sys.executable, "-c", STATS_CHILD], cwd=root,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    try:
+        plain = timed("11", phase_stats, False)
+        out, _ = child.communicate(timeout=900)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    SECONDS["11 sym"] = time.time() - t
+    lines = out.splitlines()
+    print("\n".join(lines[:-1]), flush=True)
+    print(f"[11 sym seconds] {SECONDS['11 sym']:.1f} (from the start of "
+          f"both batches)", flush=True)
+    if child.returncode != 0:
+        raise SystemExit(f"11 STATS -sym failed (exit {child.returncode}): "
+                         f"{lines[-1] if lines else ''}")
+    sym = json.loads(lines[-1])
+    print(f"[11 ratio] plain/-sym mean ops/sqrtN {plain[1] / sym['mean']:.4f}"
+          f" against sqrt(2) {math.sqrt(2):.4f}", flush=True)
+    if not sym["mean"] < plain[1]:
+        raise SystemExit(f"11 STATS: the -sym mean {sym['mean']:.4f} is not "
+                         f"below the plain one {plain[1]:.4f} on the same "
+                         f"keys")
+    return plain, (sym["launches"], sym["mean"], sym["err"])
+
+
 def timed(phase, fn, *args, **kw):
     """fn(*args, **kw), with its seconds printed and kept."""
     t = time.time()
@@ -1480,6 +1692,11 @@ def main():
     shard_b = timed("10b", phase_shard_solve, plain_st)
     nwin = timed("10n", phase_nwin)
     multi = timed("10m", phase_multihost)
+    (stats, _, stats_err), (sym_stats, _, sym_stats_err) = (
+        phase_stats_pair())
+    # the kernels' max_abs_err covers phase 11's check as well
+    cmp_plain = (max(cmp_plain[0], stats_err),) + tuple(cmp_plain[1:])
+    cmp_sym = (max(cmp_sym[0], sym_stats_err),) + tuple(cmp_sym[1:])
     torch.cuda.empty_cache()
     cmp_probes = timed("7 compare", phase_probe_compare, dev)
     probe_rows, probe_counts = timed("7", phase_probes)
@@ -1491,17 +1708,19 @@ def main():
             "9 in64 client": net, "9w in64 -wss save": wss_save,
             "9w in64 -wss resume": wss_resume,
             "10a two shards": shard_a, "10b in64 2-shard solve": shard_b,
-            "10n in64 -nwin 2": nwin, "10m 2 processes": multi}),
+            "10n in64 -nwin 2": nwin, "10m 2 processes": multi,
+            "11 STATS plain": stats}),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
                sym_by, {"5s in64 -sym solve": sym_launches,
                         "6s in64 -sym saving solve": ws_save,
                         "6s in64 -sym resume": ws_resume,
                         "9s in64 -sym client": net_sym,
-                        "10a two shards": sym_shard_a}),
+                        "10a two shards": sym_shard_a,
+                        "11 STATS -sym": sym_stats}),
     ] + _probe_entries(probe_rows, probe_counts, cmp_probes)
     kernels[0]["ms_two_shards_10a"] = shard_a_ms
     kernels[1]["ms_two_shards_10a"] = sym_shard_a_ms
-    print(f"[11 seconds] " + ", ".join(f"{k} {v:.1f}"
+    print(f"[12 seconds] " + ", ".join(f"{k} {v:.1f}"
                                        for k, v in SECONDS.items())
           + f"; whole run {time.time() - t_main:.1f}", flush=True)
     print(json.dumps({"kernels": kernels}))

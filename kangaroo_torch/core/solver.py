@@ -87,6 +87,9 @@ class SolverOptions:
 class SolveStats:
     count: int = 0             # jumps, a loaded file's count included
     dead: int = 0
+    # of the dead, DPs already in the table with the same distance: a
+    # lane walking a trail that one of its own type (or itself) walked
+    dup: int = 0
     time: float = 0.0          # walk wall time (s), a loaded file's included
     herd_time: float = 0.0     # herd creation (or restore) wall time (s)
     ticks: int = 0
@@ -554,6 +557,7 @@ class KangarooSolver:
                 _, dup_idx, dup_total, colls = self.hash_table.add_batch_raw(
                     rec[off:off + part].tobytes(), part)
                 self.stats.dead += dup_total
+                self.stats.dup += dup_total
                 resets += [int(lanes[off + i]) for i in dup_idx]
                 for _, d_new, d_old, idx in colls:
                     d1, t1 = calc_dist_and_type(d_old)

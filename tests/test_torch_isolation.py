@@ -30,8 +30,8 @@ TPU_SCRIPTS = ("scripts", "pkbench", "probe_ops", "pkdelta", "pkinv",
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "kangaroo_tpu"))
              or m.split(".")[0] in TPU_SCRIPTS)
-# the work-file, network and multi-device modules are among those
-# imported
+# the work-file, network, multi-device and STATS modules are among
+# those imported
 missing = [m for m in ("kangaroo_torch.io.backup", "kangaroo_torch.io.merge",
                        "kangaroo_torch.utils.packing",
                        "kangaroo_torch.native", "kangaroo_torch.core.check",
@@ -39,7 +39,9 @@ missing = [m for m in ("kangaroo_torch.io.backup", "kangaroo_torch.io.merge",
                        "kangaroo_torch.net.server",
                        "kangaroo_torch.net.client",
                        "kangaroo_torch.parallel.sharding",
-                       "kangaroo_torch.parallel.multihost")
+                       "kangaroo_torch.parallel.multihost",
+                       "kangaroo_torch.stats_batch",
+                       "kangaroo_torch.stats_summary")
            if m not in names]
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
