@@ -5,9 +5,10 @@ Drives the port's main paths on one CUDA card -- the solve, its work
 files (checkpoint, resume, -wsplit merge, -winfo, -wcheck), the probe
 entry points, -check, the network, the multi-device herd (two lane
 shards, on two cards or side by side on one), fused launch windows, the
-multi-process herd and STATS batches of many keys -- and holds every
-kernel against its plain PyTorch version, phase by phase; any fault
-raises and the exit code is non-zero.  Each phase prints its seconds.
+multi-process herd, the weak-scaling harness and STATS batches of many
+keys -- and holds every kernel against its plain PyTorch version, phase
+by phase; any fault raises and the exit code is non-zero.  Each phase
+prints its seconds.
 Run from the repository root:
 
     python3 chip_smoke.py
@@ -23,8 +24,8 @@ Phases:
      and fit a 2^22-lane grid in one wave;
   3. plain kernel vs plain walk at the main path's shape: the kernel
      walks a 2^22-lane herd (512 blocks of 128 threads x 64 lanes) once
-     with slot overflow (dp 6, 2 slots, 256 steps) and once as the
-     solver runs it (dp 14, 6 slots, 256 steps); the plain walk runs the
+     with slot overflow (dp 6, 2 slots, 128 steps) and once as the
+     solver runs it (dp 14, 6 slots, 128 steps); the plain walk runs the
      same window on 32 lanes of every block (2^14 lanes, corners of each
      block's thread x group grid included), and the kernel once more on
      those 2^14 lanes alone.
@@ -34,8 +35,8 @@ Phases:
      events;
   3s. symmetry kernel vs plain symmetry walk, the same way, on a
      2^22-lane symmetry herd after one symmetry window (so that the
-     class input holds both classes): dp 6, 2 slots, 256 steps, and
-     dp 14, 6 slots, 256 steps; every output bit-equal, symclass and
+     class input holds both classes): dp 6, 2 slots, 128 steps, and
+     dp 14, 6 slots, 128 steps; every output bit-equal, symclass and
      the canonical py included;
   4s. full-width symmetry walk, 2^22 x 1024, beside the plain one;
   5. end-to-end solve of fixtures/in56.txt at 2^22 lanes with the auto
@@ -100,7 +101,18 @@ Phases:
      each walking 2^20 lanes of one herd for 256 steps through the
      kernel: the gathered walk bit-equal to one process's, the reduced
      DP hits equal to its;
-  11. (runs after 10m, before 7) STATS: keys 0..STATS_KEYS-1 of
+  10w. weak scaling: parallel/weak_scaling.py's run_sizes at sizes 1 and
+     2 (two cards, or both shards on cuda:0), first at its card defaults
+     (2^22 lanes a shard, 64 steps, dp 16, the solver's slots), then at
+     the solver's in64 tick (dp 14, 1024 steps, 6 slots): the random
+     herd of the JAX script's seed; each size's first tick bit-equal to
+     the plain walk on PER_BLOCK lanes of every block (tolerance 0, py
+     mod p; at the in64 tick to the kernel on those lanes alone, which
+     phase 3 holds to the plain walk); the drain (the solver's compaction, sharding.compact) under
+     half the kernel time at every size; every row printed, with the
+     caveat where the shards share a card, and 10b's compaction a tick
+     beside it;
+  11. (runs after 10w, before 7) STATS: keys 0..STATS_KEYS-1 of
      fixtures/in40_1000.txt solved as a batch through one solver object
      (kangaroo_torch.stats_batch run_batch, seed SEED + i for key i),
      plain in this process and -sym in a child process at the same
@@ -147,10 +159,10 @@ NAMES = ("px", "py", "d", "count", "dpx", "dpd", "step")
 # (dp, slots, steps, overflow expected) of the kernel-vs-plain windows.
 # The plain walk takes 15-25 s per 256 steps on 2^14 lanes, by the
 # host's speed; the windows are short (most lanes fill their 2 slots
-# within 256 steps at dp 6) to keep the script well inside its time
-# limit.
-PLAIN_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 256, False))
-SYM_WINDOWS = ((6, 2, 256, True), (DP_FULL, SLOTS_FULL, 256, False))
+# within 128 steps at dp 6) to keep the script well inside its time
+# limit (phase 10w's plain checks came after them).
+PLAIN_WINDOWS = ((6, 2, 128, True), (DP_FULL, SLOTS_FULL, 128, False))
+SYM_WINDOWS = ((6, 2, 128, True), (DP_FULL, SLOTS_FULL, 128, False))
 # probe comparisons (phase 7): lanes of each 128-lane block that the
 # plain versions of P1's one-lane chains check; the rounds of the P1
 # fe_inv and P2 comparison launches (the entry points run 16 and 2^17)
@@ -277,9 +289,9 @@ def _walk(fn, state, tabs, masks, nb_run, slots):
     return fn(*state[:3], *tabs, masks, nb_run=nb_run, slots=slots, **sym)
 
 
-def _subset(dev):
-    """PER_BLOCK lanes of every block of the kernel: the four corners of
-    the block's thread x group grid and random others."""
+def _subset(dev, n=N_FULL):
+    """PER_BLOCK lanes of every block of the kernel over n lanes: the
+    four corners of the block's thread x group grid and random others."""
     from kangaroo_torch.ops import jump_cuda
 
     q, t = jump_cuda.LANE_QUANTUM, jump_cuda.THREADS
@@ -288,7 +300,7 @@ def _subset(dev):
     idx = [b * q + np.concatenate(
                [corners, rs.choice(q, PER_BLOCK - len(corners),
                                    replace=False)])
-           for b in range(N_FULL // q)]
+           for b in range(n // q)]
     return torch.from_numpy(np.concatenate(idx)).to(dev)
 
 
@@ -1398,7 +1410,7 @@ def phase_shard_solve(plain_st):
                          f"{st.dead}, {st.lost} against {plain_st.ticks}, "
                          f"{plain_st.count}, {plain_st.dead}, "
                          f"{plain_st.lost})")
-    return launches
+    return launches, [sum(xs) / len(xs) for xs in per_shard]
 
 
 def phase_nwin():
@@ -1459,6 +1471,103 @@ def phase_multihost():
             or any(res["plain_calls"])):
         raise SystemExit(f"{tag}: the multi-process walk is wrong")
     return sum(res["launches"])
+
+
+# phase 10w: the weak-scaling harness at its card defaults, then at the
+# solver's in64 tick (phase 5s's auto DP at 2^22 lanes: dp 14, 1024
+# steps, 6 slots, ~2^18 DPs a tick), sizes 1 and 2; (label, run_sizes
+# options, whether the first ticks are held against the plain walk: it
+# takes 65 s or more for 1024 steps, so the in64 tick's are held against
+# the kernel on those lanes alone, which phase 3 holds to the plain walk
+# at the same dp and slots)
+WEAK_SHAPES = (("defaults", {}, True),
+               ("in64 tick", dict(nb_run=NB_FULL, dp_bits=DP_FULL,
+                                  slots=SLOTS_FULL), False))
+
+
+def phase_weak_scaling(compact_10b):
+    """10w: kangaroo_torch.parallel.weak_scaling run_sizes on the card
+    at sizes 1 and 2 (two cards, or cuda:0 twice), at each shape of
+    WEAK_SHAPES: each size's first tick bit-equal to the plain walk (or
+    the kernel alone) on phase 3's lanes (PER_BLOCK of every block; both
+    sizes' lanes in one call), the drain under half the kernel time at
+    every size;
+    prints each row, the caveat where the shards share the card, and
+    10b's compaction a tick beside the harness's.  Returns the plain
+    kernel's launches."""
+    from kangaroo_torch.ops import jump_cuda, jump_ref
+    from kangaroo_torch.parallel import weak_scaling
+    from kangaroo_torch.profile_walk import cuda_ms
+
+    names, where = _shard_devices()
+    dev = torch.device("cuda", 0)
+    launches = 0
+    for label, kw, plain in WEAK_SHAPES:
+        tag = f"10w weak scaling, {label}"
+        kept = []
+
+        def keep(nd, inputs, shards, outs):
+            idx = _subset("cpu", shards[-1].hi).numpy()
+            sub_in = [torch.from_numpy(a[..., idx].astype(np.int32))
+                      for a in inputs[:3]]
+            sub_out = []
+            for k in range(len(NAMES)):
+                parts = []
+                for sh, o in zip(shards, outs):
+                    sel = idx[(idx >= sh.lo) & (idx < sh.hi)] - sh.lo
+                    parts.append(o[k][..., torch.from_numpy(sel).to(
+                        sh.device)].cpu())
+                sub_out.append(torch.cat(parts, dim=-1))
+            kept.append((sub_in, sub_out, inputs[3:]))
+
+        _reset_counts()
+        results, devices = weak_scaling.run_sizes(
+            sizes=(1, 2), device=names, on_first_tick=keep, **kw)
+        launches += _read_counts(False, tag)
+        nb_run, slots = results[0]["nb_run"], results[0]["slots"]
+        tabs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in kept[0][2]]
+        pin = [torch.cat([k[0][i] for k in kept], dim=-1).to(dev)
+               for i in range(3)]
+        ref = jump_ref if plain else jump_cuda
+        p, p_ms = cuda_ms(lambda: ref.jump_steps_with_dp(
+            *pin, *tabs, nb_run=nb_run, slots=slots))
+        got = [torch.cat([k[1][i] for k in kept], dim=-1).to(dev)
+               for i in range(len(NAMES))]
+        errs = _errors(got, p, False)
+        caveat = weak_scaling.payload(results, devices).get("caveat")
+        for r in results:
+            print(f"[{tag}] {r['devices']} shard(s) of "
+                  f"{r['lanes_per_device']} lanes ({where}), "
+                  f"{r['nb_run']} steps, dp {r['dp_bits']}, {r['slots']} "
+                  f"slots: kernel {r['kernel_s_per_tick']:.6f} s a tick, "
+                  f"{r['mks']:.1f} M jumps/s ({r['mks_per_device']:.1f} a "
+                  f"shard, efficiency {r['weak_scaling_eff']:.4f}); drain "
+                  f"(compaction) {r['drain_s_per_tick']:.6f} s a tick, "
+                  f"shard by shard {r['drain_s_per_shard']}; "
+                  f"{r['dps_per_tick']} DPs a tick, {r['lost_per_tick']} "
+                  f"lost", flush=True)
+        what = "the plain walk" if plain else "the kernel alone"
+        print(f"[{tag}] first tick of each size against {what} on "
+              f"{pin[0].shape[1]} lanes ({PER_BLOCK} per block, both sizes "
+              f"in one call, {p_ms:.1f} ms, {int(p[3].sum())} DPs): max "
+              f"|sharded - reference| {errs}; launches {launches}; "
+              f"caveat: {caveat}", flush=True)
+        _reset_counts()  # the kernel-alone check is not the path's
+        if any(errs.values()) or int(p[3].sum()) == 0:
+            raise SystemExit(f"{tag}: the sharded tick differs from "
+                             f"{what}: {errs}")
+        slow = [r["devices"] for r in results
+                if not r["drain_s_per_tick"] < 0.5 * r["kernel_s_per_tick"]]
+        if slow or [r["devices"] for r in results] != [1, 2]:
+            raise SystemExit(f"{tag}: the drain is not under half the "
+                             f"kernel time at sizes {slow}")
+        del p, got, pin, kept
+        torch.cuda.empty_cache()
+    print(f"[10w weak scaling] 10b's compaction a tick in the solver loop "
+          f"(its wait for the shard's windows included), shard by shard: "
+          + ", ".join(f"{x:.4f} s" for x in compact_10b), flush=True)
+    return launches
 
 
 def phase_stats(sym):
@@ -1689,9 +1798,11 @@ def main():
                                         True)
     del herd, state
     torch.cuda.empty_cache()
-    shard_b = timed("10b", phase_shard_solve, plain_st)
+    shard_b, compact_b = timed("10b", phase_shard_solve, plain_st)
     nwin = timed("10n", phase_nwin)
     multi = timed("10m", phase_multihost)
+    weak = timed("10w", phase_weak_scaling, compact_b)
+    torch.cuda.empty_cache()
     (stats, _, stats_err), (sym_stats, _, sym_stats_err) = (
         phase_stats_pair())
     # the kernels' max_abs_err covers phase 11's check as well
@@ -1709,6 +1820,7 @@ def main():
             "9w in64 -wss resume": wss_resume,
             "10a two shards": shard_a, "10b in64 2-shard solve": shard_b,
             "10n in64 -nwin 2": nwin, "10m 2 processes": multi,
+            "10w weak scaling": weak,
             "11 STATS plain": stats}),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
                sym_by, {"5s in64 -sym solve": sym_launches,

@@ -446,40 +446,13 @@ class KangarooSolver:
         tick_fn = sharding.make_sharded_jump_steps(shards, nb_run, n_slots,
                                                    sym)
 
-        def compact(sh, wins):
-            """One shard's DPs of a tick's windows, compacted on its
-            device on its stream (after the windows, before the shard's
-            next launch) and copied to the host in one read.
-
-            Occupied slot cells from each window's count; nonzero gives
-            the exact hit count (it waits for the windows); the payload
-            is gathered into one (m, 20) int32 block of [x limbs 0..9 |
-            d limbs 0..7 | step within the tick (window * nb_run +
-            step) | global lane].  The lost count is exact: count -
-            min(count, slots).  Returns (lost, block)."""
-            with sh.walk():
-                m = sh.hi - sh.lo
-                slot_iota = torch.arange(n_slots, device=sh.device)[:, None]
-                lost, blks = 0, []
-                for w, (count, dpx, dpd, step) in enumerate(wins):
-                    c2 = torch.clamp(count, max=n_slots)
-                    lost = lost + (count - c2).sum()
-                    cells = (slot_iota < c2[None, :]).flatten().nonzero()
-                    cells = cells.squeeze(1)
-                    s_idx, lanes = cells // m, cells % m
-                    blks.append(torch.cat([
-                        dpx[s_idx, :, lanes], dpd[s_idx, :, lanes],
-                        (step[s_idx, lanes] + w * nb_run)[:, None],
-                        (lanes + sh.lo)[:, None].to(torch.int32),
-                    ], dim=1))
-                blk = blks[0] if kw == 1 else torch.cat(blks)
-                return int(lost), blk.cpu().numpy()
-
         def pull(sh, wins):
-            """compact() under the watchdog (its reads block on the
-            card); the seconds go to stats.compact_s."""
+            """One shard's DPs of a tick's windows (sharding.compact)
+            under the watchdog (its reads block on the card); the
+            seconds go to stats.compact_s."""
             t = time.perf_counter()
-            out = self._host_read(lambda: compact(sh, wins))
+            out = self._host_read(
+                lambda: sharding.compact(sh, wins, n_slots, nb_run))
             return out, time.perf_counter() - t
 
         def merged(pulled):

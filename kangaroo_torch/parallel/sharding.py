@@ -153,6 +153,37 @@ def synchronize(shards: Sequence[Shard]) -> None:
             s.stream.synchronize()
 
 
+def compact(shard: Shard, wins, slots: int, nb_run: int):
+    """One shard's DPs of a tick's windows, compacted on its device on
+    its stream (after the windows, before the shard's next launch) and
+    copied to the host in one read: the solver's per-tick drain
+    (core/solver.py), which parallel/weak_scaling.py times.
+
+    wins holds each window's (count, dpx, dpd, step) in launch order.
+    Occupied slot cells from each window's count; nonzero gives the
+    exact hit count (it waits for the windows); the payload is gathered
+    into one (m, 20) int32 block of [x limbs 0..9 | d limbs 0..7 | step
+    within the tick (window * nb_run + step) | global lane].  The lost
+    count is exact: count - min(count, slots).  Returns (lost, block)."""
+    with shard.walk():
+        m = shard.hi - shard.lo
+        slot_iota = torch.arange(slots, device=shard.device)[:, None]
+        lost, blks = 0, []
+        for w, (count, dpx, dpd, step) in enumerate(wins):
+            c2 = torch.clamp(count, max=slots)
+            lost = lost + (count - c2).sum()
+            cells = (slot_iota < c2[None, :]).flatten().nonzero()
+            cells = cells.squeeze(1)
+            s_idx, lanes = cells // m, cells % m
+            blks.append(torch.cat([
+                dpx[s_idx, :, lanes], dpd[s_idx, :, lanes],
+                (step[s_idx, lanes] + w * nb_run)[:, None],
+                (lanes + shard.lo)[:, None].to(torch.int32),
+            ], dim=1))
+        blk = blks[0] if len(blks) == 1 else torch.cat(blks)
+        return int(lost), blk.cpu().numpy()
+
+
 def make_sharded_jump_steps(shards: Sequence[Shard], nb_run: int,
                             slots: int = 2, symmetry: bool = False):
     """The window over every shard: returns tick(herds, tables), where

@@ -40,6 +40,7 @@ missing = [m for m in ("kangaroo_torch.io.backup", "kangaroo_torch.io.merge",
                        "kangaroo_torch.net.client",
                        "kangaroo_torch.parallel.sharding",
                        "kangaroo_torch.parallel.multihost",
+                       "kangaroo_torch.parallel.weak_scaling",
                        "kangaroo_torch.stats_batch",
                        "kangaroo_torch.stats_summary")
            if m not in names]

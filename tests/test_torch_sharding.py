@@ -21,6 +21,11 @@ torch = pytest.importorskip("torch")
 # the suite runs in parallel worker processes: one thread each
 torch.set_num_threads(1)
 
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
+
+# the JAX solver's native table, loaded whatever the build race
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402

@@ -19,6 +19,11 @@ torch = pytest.importorskip("torch")
 # the suite runs in parallel worker processes: one thread each
 torch.set_num_threads(1)
 
+from tests.test_torch_jax_native import jax_native  # noqa: E402,F401
+
+# the JAX solver's native table, loaded whatever the build race
+pytestmark = pytest.mark.usefixtures("jax_native")
+
 from kangaroo_tpu.core import solver as jsolver  # noqa: E402
 from kangaroo_tpu.core.config import parse_config_file as jparse  # noqa: E402
 from kangaroo_torch.core import solver  # noqa: E402

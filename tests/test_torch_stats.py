@@ -65,6 +65,9 @@ def test_multi_key_rows_equal_jax_solver(sym):
     imported here: the card host that runs the card test has no JAX.)"""
     jsolver = pytest.importorskip("kangaroo_tpu.core.solver")
     from kangaroo_tpu.core.config import parse_config_file as jparse
+    from tests.test_torch_jax_native import require_jax_native
+
+    require_jax_native()  # the JAX solver's native table
 
     seed0 = SYM_SEED0 if sym else SEED0
     js = jsolver.KangarooSolver(jparse(IN28), jsolver.SolverOptions(
