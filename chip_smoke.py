@@ -65,8 +65,12 @@ Phases:
      launches it (inputs, lanes, geometry, rounds; P1's fe_inv and P2
      at fewer rounds) against its plain version on lanes of every block
      -- whole thread groups where a thread owns G lanes -- (tolerance
-     0; f32 rtol 1e-5), then the five probe entry points at their
-     default shapes, launch counts read around them;
+     0; f32 rtol 1e-5), P1's add-class chains (fe_sub, fe_add, fe_fold)
+     also on 2^16 lanes of operands whose words are 0, 1, 2^32 - 2 and
+     2^32 - 1 (every lane, 1 and 256 rounds), then the five probe entry
+     points at their default shapes, launch counts read around them,
+     and the SASS instructions per round of those three chains beside
+     the issue slots their bound counts;
   8. check: -check (run_self_check) on the card, launch counts read
      around it;
   9. network: the CLI's DP server (-s -d 14 -sp 0, in64) in a process
@@ -169,6 +173,8 @@ SYM_WINDOWS = ((6, 2, 128, True), (DP_FULL, SLOTS_FULL, 128, False))
 CMP_LANES_PER_BLOCK = 4
 CMP_INV_ROUNDS = 1
 CMP_INNER = 256
+# lanes of the add-class chains' run-word comparison (phase 7)
+CMP_RUN_LANES = 1 << 16
 # phase 11: keys of fixtures/in40_1000.txt per STATS batch, and the
 # batch's herd (one walk-kernel block), DP and steps per tick
 STATS_KEYS = 100
@@ -1068,6 +1074,16 @@ def _group_sample(blocks, group, rs, want=()):
     return lanes.reshape(-1, t, group).transpose(0, 2, 1).reshape(-1)
 
 
+def _run_words(n, seed, dev):
+    """(16, n) int32 limbs of field values whose 32-bit words are drawn
+    from 0, 1, 2^32 - 2 and 2^32 - 1."""
+    words = np.array([0, 1, 0xFFFFFFFE, 0xFFFFFFFF], dtype=np.int64)[
+        np.random.RandomState(seed).randint(0, 4, (8, n))]
+    limbs = np.empty((16, n), dtype=np.int64)
+    limbs[0::2], limbs[1::2] = words & 0xFFFF, words >> 16
+    return torch.from_numpy(limbs.astype(np.int32)).to(dev)
+
+
 def phase_probe_compare(dev):
     """Each probe kernel against its plain version on identical inputs.
     The kernel runs as its entry point runs it: the entry point's inputs,
@@ -1077,7 +1093,9 @@ def phase_probe_compare(dev):
     lanes of every block of that launch: P1's one-lane chains a few
     lanes of each block; P1's step, P3 and P4, whose threads own G lanes
     each, every lane of one thread per block (P3: a thread with a DP in
-    this run where the block has one); P2 every element.  Returns {kernel
+    this run where the block has one); P2 every element.  The add-class
+    chains also run on operands of run words (_run_words), every lane.
+    Returns {kernel
     key: (max_abs_err, plain ms, kernel launch, plain shape)}.  Launches
     made here are not the probes' main path."""
     from kangaroo_torch.ops import jump_ref, probe_cuda, probe_ref
@@ -1129,6 +1147,19 @@ def phase_probe_compare(dev):
                    + (f", {smem} B dynamic shared memory" if smem else ""),
                    p_shape, canon=op not in ("gather", "step"))
             del k
+    # the add-class chains on operands whose words are 0, 1, 2^32 - 2
+    # and 2^32 - 1, so that carries and borrows run through every word
+    # and fe_sub meets b - a > p: every lane, after 1 and 256 rounds
+    ra, rb = (_run_words(CMP_RUN_LANES, s, dev) for s in (1, 2))
+    for op in ("sub", "add", "fold"):
+        for rounds in (1, pkbench.ROUNDS[op]):
+            p, p_ms = cuda_ms(lambda: probe_ref.field_chain(op, ra, rb,
+                                                            rounds))
+            shape = f"{CMP_RUN_LANES} lanes of run words x {rounds} rounds"
+            record(probe_cuda.kernel_key("field_chain", op),
+                   probe_cuda.field_chain(op, ra.clone(), rb, rounds), p,
+                   p_ms, shape, shape, canon=True)
+    del ra, rb
     # fe_inv's latency row: one block of 128 lanes, every lane
     r = pkbench.ROUNDS["inv"]
     x1, b1 = (t[:, :pkbench.INV_LANES].contiguous() for t in (a, b))
@@ -1233,6 +1264,13 @@ def phase_probes():
                    if not counts.get(r["key"])})
     print(f"[7 probes] entry points {time.time() - t:.1f} s; launches "
           f"{counts}", flush=True)
+    print("[7 probes] add-class chains, SASS instructions per round of "
+          "kt_field_chain<op> (a loop trip over its rounds, the loop's "
+          "counter, compare and branch included) against the bound's issue "
+          "slots: " + "; ".join(
+              f"{r['key'].split('/')[1]} {r['sass']['per_round']:.2f} against "
+              f"{r['sass']['bound_slots']}" for r in rows["pkbench"]
+              if "sass" in r), flush=True)
     if idle:
         raise SystemExit(f"probe kernels not launched by their entry "
                          f"points: {idle}")
@@ -1290,6 +1328,9 @@ def _probe_entries(rows, counts, cmp):
                 "compare_shape": cmp_shape,
                 "plain_shape": p_shape,
             })
+            if "sass" in r:
+                out[-1]["sass_per_round"] = r["sass"]["per_round"]
+                out[-1]["bound_slots_per_round"] = r["sass"]["bound_slots"]
     return out
 
 

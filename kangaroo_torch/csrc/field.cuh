@@ -3,7 +3,14 @@
 // Plain C++ marked __host__ __device__: nvcc builds it into the walk
 // kernel (jump_kernel.cu) and g++ builds the very same code for the
 // CPU tests (host_shim.cpp), so the kernel's own arithmetic is checked
-// without a card.  No inline PTX.
+// without a card.  The add-class ops (fe_fold, fe_add, fe_sub_c,
+// fe_sub) are carry chains written once over the six one-word carry
+// primitives below: on the device each primitive is one PTX carry
+// instruction (add.cc.u32 ... subc.u32) in inline PTX, on the host a
+// C++ twin with the same carry semantics, so the g++ build checks the
+// chains themselves (tests/test_torch_field_cuh.py holds them against
+// Python ints and the JAX package) and only the primitives differ.  No
+// other inline PTX.
 //
 // A field element is uint32_t[8], least-significant word first.  Word w
 // holds the 16-bit limbs 2w (low half) and 2w+1 (high half) of the
@@ -21,6 +28,14 @@
 #define KT_HD inline
 #endif
 
+// full unrolling of a chain's word loop, so that its words stay in
+// registers
+#if defined(__CUDA_ARCH__)
+#define KT_UNROLL _Pragma("unroll")
+#else
+#define KT_UNROLL
+#endif
+
 namespace kt {
 
 constexpr uint32_t C_LOW = 977u;  // K1C = 2^32 + C_LOW
@@ -29,74 +44,164 @@ KT_HD void fe_copy(uint32_t r[8], const uint32_t a[8]) {
     for (int i = 0; i < 8; ++i) r[i] = a[i];
 }
 
+// ---- one-word carry primitives ----
+//
+// A chain is a run of calls on one Carry: add_cc or sub_cc starts it,
+// each *_cc call passes the flag on, addc or subc ends it.  The flag is
+// the carry of a + b, or of a + ~b + 1 for a - b (1 where there is no
+// borrow), as the card keeps it; so an add chain's carry is read as
+// addc(cy, 0, 0) (0 or 1) and a sub chain's borrow as subc(cy, 0, 0) (0
+// or all ones), and the families are not mixed: addc after sub.cc reads
+// the borrow's complement.  On the device the flag is PTX's CC.CF and
+// `cy` is not read: each call is an asm volatile, so a chain's
+// instructions stay in program order, and the compiler emits no carry
+// instruction of its own between them.  On the host the flag is cy.cf,
+// kept the same way, so a chain that mixed the families fails on the
+// host too.
+struct Carry {
+    uint32_t cf = 0;
+};
+
+KT_HD uint32_t add_cc(Carry& cy, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+#else
+    const uint32_t r = a + b;
+    cy.cf = r < a;
+    return r;
+#endif
+}
+
+KT_HD uint32_t addc_cc(Carry& cy, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+#else
+    const uint64_t s = (uint64_t)a + b + cy.cf;
+    cy.cf = (uint32_t)(s >> 32);
+    return (uint32_t)s;
+#endif
+}
+
+KT_HD uint32_t addc(Carry& cy, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+#else
+    return a + b + cy.cf;
+#endif
+}
+
+KT_HD uint32_t sub_cc(Carry& cy, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+#else
+    cy.cf = a >= b;
+    return a - b;
+#endif
+}
+
+KT_HD uint32_t subc_cc(Carry& cy, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+#else
+    const uint64_t d = (uint64_t)a + (uint32_t)~b + cy.cf;
+    cy.cf = (uint32_t)(d >> 32);
+    return (uint32_t)d;
+#endif
+}
+
+KT_HD uint32_t subc(Carry& cy, uint32_t a, uint32_t b) {
+#if defined(__CUDA_ARCH__)
+    uint32_t r;
+    asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+    return r;
+#else
+    return a + ~b + cy.cf;
+#endif
+}
+
+// ---- add-class ops: carry chains, no data-dependent branch ----
+
+// r += w0 + w1 2^32 + w2 2^64 over the 8 words; returns the carry out
+// of 2^256 (0 or 1).
+KT_HD uint32_t add3_words(uint32_t r[8], uint32_t w0, uint32_t w1,
+                          uint32_t w2) {
+    Carry cy;
+    r[0] = add_cc(cy, r[0], w0);
+    r[1] = addc_cc(cy, r[1], w1);
+    r[2] = addc_cc(cy, r[2], w2);
+    KT_UNROLL
+    for (int i = 3; i < 8; ++i) r[i] = addc_cc(cy, r[i], 0u);
+    return addc(cy, 0u, 0u);
+}
+
 // r += k * K1C for k < 2^34, then once more for the (0/1) carry out of
-// 2^256.  After a carry out the low part is < 2^67, so the second fold
-// cannot carry again.  Result < 2^256, congruent to r + k*2^256.
+// 2^256.  k * K1C = k * 977 + k * 2^32 spans words 0-2: with k = kl +
+// kh 2^32 (kh < 4), word 0 is the low half of the wide product kl *
+// 977, word 1 its high half + kh * 977 + kl (< 2^10 + 2^12 + 2^32, so
+// it may carry), word 2 kh and that carry.  After a carry out the low
+// part is < 2^67, so the second pass reaches word 2 and no further.
+// Result < 2^256, congruent to r + k*2^256.
 KT_HD void fe_fold(uint32_t r[8], uint64_t k) {
-    uint64_t c = (uint64_t)r[0] + k * C_LOW;
-    r[0] = (uint32_t)c;
-    c >>= 32;
-    c += (uint64_t)r[1] + k;
-    r[1] = (uint32_t)c;
-    c >>= 32;
-    for (int i = 2; i < 8; ++i) {
-        c += r[i];
-        r[i] = (uint32_t)c;
-        c >>= 32;
-    }
-    const uint64_t k2 = c;
-    c = (uint64_t)r[0] + k2 * C_LOW;
-    r[0] = (uint32_t)c;
-    c >>= 32;
-    c += (uint64_t)r[1] + k2;
-    r[1] = (uint32_t)c;
-    c >>= 32;
-    for (int i = 2; i < 8; ++i) {
-        c += r[i];
-        r[i] = (uint32_t)c;
-        c >>= 32;
-    }
+    const uint32_t kl = (uint32_t)k, kh = (uint32_t)(k >> 32);
+    const uint64_t w = (uint64_t)kl * C_LOW;
+    Carry cy;
+    const uint32_t w1 = add_cc(cy, (uint32_t)(w >> 32) + kh * C_LOW, kl);
+    const uint32_t w2 = addc(cy, kh, 0u);
+    const uint32_t k2 = add3_words(r, (uint32_t)w, w1, w2);
+    r[0] = add_cc(cy, r[0], k2 * C_LOW);
+    r[1] = addc_cc(cy, r[1], k2);
+    r[2] = addc(cy, r[2], 0u);
 }
 
-// r = (a + b) mod p, relaxed.
+// r = (a + b) mod p, relaxed: the 8-word sum, its carry c folded (r +=
+// c * K1C), and that pass's carry out folded once more: after it r <
+// K1C, so the second pass ends at word 1.
 KT_HD void fe_add(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint64_t c = 0;
-    for (int i = 0; i < 8; ++i) {
-        c += (uint64_t)a[i] + b[i];
-        r[i] = (uint32_t)c;
-        c >>= 32;
-    }
-    fe_fold(r, c);
+    Carry cy;
+    r[0] = add_cc(cy, a[0], b[0]);
+    KT_UNROLL
+    for (int i = 1; i < 8; ++i) r[i] = addc_cc(cy, a[i], b[i]);
+    const uint32_t c = addc(cy, 0u, 0u);
+    const uint32_t c2 = add3_words(r, c * C_LOW, c, 0u);
+    r[0] = add_cc(cy, r[0], c2 * C_LOW);
+    r[1] = addc(cy, r[1], c2);
 }
 
-// r -= k * K1C (k in {0, 1}); returns the borrow out of 2^256.
+// r -= k * K1C (k in {0, 1}) over the 8 words; returns the borrow out
+// of 2^256 (0 or 1).
 KT_HD uint32_t fe_sub_c(uint32_t r[8], uint32_t k) {
-    uint64_t d = (uint64_t)r[0] - (uint64_t)k * C_LOW;
-    r[0] = (uint32_t)d;
-    uint64_t br = d >> 63;
-    d = (uint64_t)r[1] - k - br;
-    r[1] = (uint32_t)d;
-    br = d >> 63;
-    for (int i = 2; i < 8; ++i) {
-        d = (uint64_t)r[i] - br;
-        r[i] = (uint32_t)d;
-        br = d >> 63;
-    }
-    return (uint32_t)br;
+    Carry cy;
+    r[0] = sub_cc(cy, r[0], k * C_LOW);
+    r[1] = subc_cc(cy, r[1], k);
+    KT_UNROLL
+    for (int i = 2; i < 8; ++i) r[i] = subc_cc(cy, r[i], 0u);
+    return subc(cy, 0u, 0u) & 1u;
 }
 
 // r = (a - b) mod p, relaxed, for any a, b < 2^256.  A borrow means the
 // 256-bit difference wrapped by 2^256; adding p is subtracting K1C
-// modulo 2^256, needed a second time when b - a > p.
+// modulo 2^256 (fe_sub_c).  That borrows again only when the wrapped
+// difference was < K1C (b - a > p); then r >= 2^256 - K1C, so the
+// second subtraction of K1C ends at word 1 without a borrow.
 KT_HD void fe_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
-    uint64_t br = 0;
-    for (int i = 0; i < 8; ++i) {
-        const uint64_t d = (uint64_t)a[i] - b[i] - br;
-        r[i] = (uint32_t)d;
-        br = d >> 63;
-    }
-    const uint32_t b2 = fe_sub_c(r, (uint32_t)br);
-    fe_sub_c(r, b2);
+    Carry cy;
+    r[0] = sub_cc(cy, a[0], b[0]);
+    KT_UNROLL
+    for (int i = 1; i < 8; ++i) r[i] = subc_cc(cy, a[i], b[i]);
+    const uint32_t k = subc(cy, 0u, 0u) & 1u;
+    const uint32_t k2 = fe_sub_c(r, k);
+    r[0] = sub_cc(cy, r[0], k2 * C_LOW);
+    r[1] = subc(cy, r[1], k2);
 }
 
 // r = t mod p, relaxed, for a 512-bit t (16 words): fold the high half,

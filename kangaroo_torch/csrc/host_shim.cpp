@@ -33,6 +33,11 @@ void kt_fe_inv_n(uint32_t* r, const uint32_t* a, int n) {
     for (int i = 0; i < n; ++i) kt::fe_inv(r + 8 * i, a + 8 * i);
 }
 
+// r[i] <- fe_fold(r[i], k[i]) in place, k[i] < 2^34
+void kt_fe_fold_n(uint32_t* r, const uint64_t* k, int n) {
+    for (int i = 0; i < n; ++i) kt::fe_fold(r + 8 * i, k[i]);
+}
+
 void kt_fe_canon_n(uint32_t* r, int n) {
     for (int i = 0; i < n; ++i) kt::fe_canon(r + 8 * i);
 }

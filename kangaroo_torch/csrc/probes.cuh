@@ -67,6 +67,11 @@ KT_HD void field_round(uint32_t a[8], const uint32_t b[8],
     }
 }
 
+// Rounds per trip of the add-class chains' loop on the device, so that
+// one trip's SASS holds that many rounds (probes/pkbench.py counts its
+// instructions per round: CHAIN_UNROLL there).
+constexpr int CHAIN_UNROLL = 4;
+
 // `rounds` rounds on one lane of the (16, n) limb arrays x (in place)
 // and b.
 template <int OP>
@@ -75,7 +80,14 @@ KT_HD void field_chain_lane(int32_t* x, const int32_t* b, size_t n,
     uint32_t a[8], c[8];
     load_words(a, 8, x, n, lane);
     load_words(c, 8, b, n, lane);
-    for (int r = 0; r < rounds; ++r) field_round<OP>(a, c, tb);
+    if constexpr (OP == F_SUB || OP == F_ADD || OP == F_FOLD) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll CHAIN_UNROLL
+#endif
+        for (int r = 0; r < rounds; ++r) field_round<OP>(a, c, tb);
+    } else {
+        for (int r = 0; r < rounds; ++r) field_round<OP>(a, c, tb);
+    }
     store_words(x, a, 8, n, lane);
 }
 

@@ -40,6 +40,7 @@ _SIGNATURES = {
     "kt_fe_sqr_n": ([_P, _P, _I], None),
     "kt_fe_inv_n": ([_P, _P, _I], None),
     "kt_add_u128_n": ([_P, _P, _I], None),
+    "kt_fe_fold_n": ([_P, _P, _I], None),
     "kt_fe_canon_n": ([_P, _I], None),
     "kt_fe_is_high_n": ([_P, _P, _I], None),
     "kt_fe_neg_n": ([_P, _P, _I], None),

@@ -82,19 +82,25 @@ PEAK = {k: v * SMS * CLOCK_HZ for k, v in PER_SM_CLOCK.items()}
 INV_ALU = 20 * (30 * 27 + 4 * 9 * 4)
 # Integer add and logic instructions per op, counted from field.cuh at
 # one instruction per word of a carry or borrow chain (the carry flag
-# carries it): fe_sub 8 words and two fe_sub_c passes of 8; fe_add 8 and
-# fe_fold; fe_fold two passes of 8 (and 2 wide multiplies by 977, as
-# IMAD); fe_canon the 8-word carry chain of r + (2^32 + 977) (the copy
-# only when it carries out).
-SUB_ALU = 24
-FOLD = {"alu": 16, "imad": 4}
+# carries it), over the words each chain can reach: fe_sub the 8-word
+# difference, an 8-word correction (its borrow can run to the top) and
+# a second that ends at word 1 (it runs only from r >= 2^256 - K1C);
+# fe_fold a first pass of 8 words and a second of 3 (after a carry out
+# the low part is < 2^67), one wide multiply k * 977 (2 IMAD) and the
+# carry's k2 * 977 (1); fe_add the 8-word sum, a fold of its carry over
+# 8 words and of that pass's carry over 2 (the low part is < K1C), each
+# carry times 977 one IMAD; fe_canon the 8-word carry chain of r +
+# (2^32 + 977) (the copy only when it carries out).
+SUB_ALU = 18
+FOLD = {"alu": 11, "imad": 3}
+ADD = {"alu": 18, "imad": 2}
 CANON_ALU = 8
 
 FIELD_COUNTS = {
     "mul": {"imad": jump_cuda.MUL_IMAD},
     "sqr": {"imad": jump_cuda.SQR_IMAD},
     "sub": {"alu": SUB_ALU},
-    "add": {"alu": 8 + FOLD["alu"], "imad": FOLD["imad"]},
+    "add": ADD,
     "fold": FOLD,
     "canon": {"alu": CANON_ALU},
     "inv": {"imad": jump_cuda.INV_IMAD, "alu": INV_ALU + 2 * CANON_ALU},

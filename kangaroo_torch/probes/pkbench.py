@@ -18,7 +18,10 @@ more at 2 blocks of 128 threads per SM (2 warps per scheduler, held
 there by dynamic shared memory): their chains alone need far fewer
 registers than the walk and run several times as many warps.  The
 default lane count is the walk's herd, so that the rows whose thread
-owns G lanes run the walk's threads.
+owns G lanes run the walk's threads.  For the add-class carry chains
+(fe_sub, fe_add, fe_fold) it counts the SASS instructions of a round
+(one trip of the chain loop holds CHAIN_UNROLL rounds) beside the issue
+slots their bound counts.
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ SASS_CLASSES = ("IMAD.WIDE", "IMAD", "IADD3", "LOP3", "LDS")
 CLAIMS = {"mul": "IMAD.WIDE", "sqr": "IMAD.WIDE", "inv": "IMAD.WIDE",
           "gather": "LDS"}
 BATCH_ITERS = 64
+# rounds per trip of the add-class chains' loop on the card (probes.cuh
+# CHAIN_UNROLL)
+CHAIN_UNROLL = 4
+CHAIN_OPS = ("sub", "add", "fold")
 LABELS = {"mul": "mulmod (fe_mul)", "sqr": "sqrmod (fe_sqr)",
           "sub": "submod (fe_sub)", "add": "addmod (fe_add)",
           "fold": "fe_fold (for carry_exact)",
@@ -58,6 +65,29 @@ def _row(label, key, ms, rounds, lanes, bound):
             "us_per_op": ms * 1e3 / rounds,
             "mlane_ops": lanes * rounds / ms / 1e3, "bound_ms": bound[0],
             "bound_by": bound[1]}
+
+
+def chain_sass() -> dict:
+    """Per add-class op, the SASS of one trip of its chain loop in
+    kt_field_chain<op> (the longest loop: CHAIN_UNROLL rounds, with the
+    loop's counter, compare and branch): its instruction count, per
+    round, its opcodes, every loop's length, and the bound's issue slots
+    per round (probe_cuda.FIELD_COUNTS)."""
+    funcs = sass.sass_functions(probe_cuda.build())
+    out = {}
+    for op in CHAIN_OPS:
+        tag = f"kt_field_chainILi{FIELD_OPS.index(op)}EE"
+        lines = common.kernel_sass(funcs, tag)
+        loops = sass.loop_bodies(lines)
+        if not loops:
+            raise RuntimeError(f"{tag}: no loop in its SASS")
+        trip = max(loops, key=len)
+        out[op] = {"trip": len(trip), "rounds": CHAIN_UNROLL,
+                   "per_round": len(trip) / CHAIN_UNROLL,
+                   "loops": [len(b) for b in loops],
+                   "opcodes": dict(sass.opcode_counts(trip)),
+                   "bound_slots": sum(probe_cuda.FIELD_COUNTS[op].values())}
+    return out
 
 
 def inputs(n: int, dev):
@@ -80,6 +110,7 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
         common.require_insn(counts,
                             f"kt_field_chainILi{FIELD_OPS.index(op)}EE",
                             (insn,))
+    chains = chain_sass()
     n = 1 << lanes_log2
     a, b, tbl, jx, jy = inputs(n, dev)
     rows = []
@@ -93,6 +124,8 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
                                     3 * 64 * n)
         rows.append(_row(LABELS[op], probe_cuda.kernel_key("field_chain", op),
                          ms, r, n, bound))
+        if op in chains:
+            rows[-1]["sass"] = chains[op]
     # the multiply and the squaring at 2 blocks of 128 threads per SM,
     # where the chains alone would run several times as many warps
     for op in ("mul", "sqr"):
@@ -156,6 +189,13 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
                   f"{common.occupancy('field_chain', op)}; static SASS "
                   f"{static}; source count per round "
                   f"{probe_cuda.field_counts(op, n)}", flush=True)
+        for op, c in chains.items():
+            print(f"  kt_field_chain<{op}> SASS: {c['trip']} instructions "
+                  f"a trip of {c['rounds']} rounds = {c['per_round']:.2f} "
+                  f"per round (loop counter, compare and branch "
+                  f"included; loops {c['loops']}) against the bound's "
+                  f"{c['bound_slots']} slots; opcodes of the trip "
+                  f"{c['opcodes']}", flush=True)
     return rows
 
 

@@ -4,8 +4,10 @@
 beside each library (registers, spills, stack and shared memory per
 kernel); `sass_functions` splits `cuobjdump -sass` of a library into its
 kernels, so that a probe can count the instructions it claims to
-measure and a build can hash a kernel's code.  Both run only where the
-CUDA toolkit is (the card's machine).
+measure and a build can hash a kernel's code; `loop_bodies` finds the
+loops of a listing (a branch back to an earlier instruction), so that a
+chain probe can count the instructions of one trip.  The readers of
+cuobjdump run only where the CUDA toolkit is (the card's machine).
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ _REGS = re.compile(r"Used (\d+) registers")
 _SMEM = re.compile(r"(\d+) bytes smem")
 _FUNC = re.compile(r"^\s*Function : (\w+)\s*$")
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_ADDR = re.compile(r"/\*([0-9a-f]{4,})\*/")
+# a branch to an address (cuobjdump prints `BRA 0x9a0`)
+_BRA = re.compile(r"\bBRA(?:\.\w+)*\s+(?:!?U?P\w+\s*,\s*)?(0x[0-9a-f]+)")
 
 
 def ptxas_report(log: str) -> Dict[str, dict]:
@@ -86,14 +91,34 @@ def sass_functions(lib: Path) -> Dict[str, List[str]]:
     -sass of the library)."""
     r = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True,
                        text=True, timeout=300, check=True)
+    return split_functions(r.stdout)
+
+
+def split_functions(listing: str) -> Dict[str, List[str]]:
+    """`sass_functions` on the text of a cuobjdump -sass listing."""
     out: Dict[str, List[str]] = {}
     cur = None
-    for line in r.stdout.splitlines():
+    for line in listing.splitlines():
         m = _FUNC.match(line)
         if m:
             cur = out.setdefault(m.group(1), [])
         elif cur is not None and _INSN.search(line):
             cur.append(line.strip())
+    return out
+
+
+def loop_bodies(lines: List[str]) -> List[List[str]]:
+    """The instruction lines of each loop in a kernel's listing: from the
+    target of a branch back to an earlier address through the branch,
+    inner loops included as they come; a branch to itself (the trap
+    after EXIT) is no loop."""
+    addr = [int(_ADDR.search(x).group(1), 16) for x in lines]
+    out = []
+    for i, line in enumerate(lines):
+        m = _BRA.search(line)
+        lo = int(m.group(1), 16) if m else addr[i]
+        if lo < addr[i]:
+            out.append([x for x, a in zip(lines, addr) if lo <= a <= addr[i]])
     return out
 
 

@@ -76,6 +76,123 @@ def test_binary_ops(lib, name, op):
     assert all((g - op(x, y)) % P == 0 for g, x, y in zip(got, a, b))
 
 
+K1C = (1 << 32) + 977
+M256 = (1 << 256) - 1
+# words that make carries and borrows run: 0, 1 and the top two values
+RUN_WORDS = (0, 1, 0xFFFFFFFE, 0xFFFFFFFF)
+
+
+def run_pattern_values(count):
+    """Values whose 32-bit words are drawn from RUN_WORDS."""
+    w = RS.choice(len(RUN_WORDS), (count, 8))
+    return [sum(RUN_WORDS[j] << (32 * i) for i, j in enumerate(row))
+            for row in w]
+
+
+def test_fe_fold_both_passes(lib):
+    """fe_fold(r, k) for k over 0 .. 2^34 - 1 against ints: r near 2^256
+    - 1 so that the first pass carries out of 2^256 and the second runs,
+    including second passes that carry from word 1 into word 2 (the low
+    part after a carry out reaches 2^67)."""
+    ks = [0, 1, 2, 977, (1 << 32) - 1, 1 << 32, (1 << 32) + 1, 1 << 33,
+          3 << 32, (1 << 34) - 2, (1 << 34) - 1]
+    ks += [int(v) for v in RS.randint(0, 1 << 62, 400, dtype=np.int64)
+           % (1 << 34)]
+    rs, kk = [], []
+    for k in ks:
+        for r in (M256, M256 - 1, M256 - k * K1C + 1, 0, 1 << 255):
+            rs.append(r % (1 << 256))
+            kk.append(k)
+        # first pass wraps to a low part whose words 0 and 1 are all
+        # ones, where k * K1C >= 2^64 allows it: the second pass carries
+        # into word 2
+        if k * K1C >= 1 << 64:
+            rs.append((1 << 256) + (1 << 64) - 1 - k * K1C)
+            kk.append(k)
+    rs += [int.from_bytes(RS.bytes(32), "little") for _ in range(400)]
+    kk += [int(v) for v in RS.randint(0, 1 << 62, 400, dtype=np.int64)
+           % (1 << 34)]
+    wr = words(rs)
+    wk = np.array(kk, dtype=np.uint64)
+    lib.kt_fe_fold_n(wr.ctypes.data, wk.ctypes.data, len(rs))
+    got = unwords(wr)
+    assert all(g < (1 << 256) for g in got)
+    assert all((g - r - k * (1 << 256)) % P == 0
+               for g, r, k in zip(got, rs, kk))
+    # the cases cover both passes and a second pass past word 1
+    low = [r + k * K1C - (1 << 256) for r, k in zip(rs, kk)]
+    assert sum(v >= 0 for v in low) > 100
+    assert any(v >= 0 and (v & ((1 << 64) - 1)) + K1C >= 1 << 64
+               for v in low)
+
+
+def test_fe_sub_both_corrections(lib):
+    """fe_sub against ints where b - a > p (the first correction borrows
+    again, so the second runs), where the borrow runs through all 8 words
+    (of the difference and of the first correction), and on operands
+    whose words are 0, 1, 2^32 - 2 and 2^32 - 1."""
+    edge = [(0, M256), (0, P + 1), (5, P + 6), (0, M256 - 4), (0, 1),
+            (1 << 224, 1), (1, 1 << 255), (P, M256)]
+    edge += [(j, M256 - j) for j in range(0, 1 << 33, 1 << 28)]
+    a = [x for x, _ in edge] + run_pattern_values(3000)
+    b = [y for _, y in edge] + run_pattern_values(3000)
+    r = np.zeros((len(a), 8), np.uint32)
+    wa, wb = words(a), words(b)
+    lib.kt_fe_sub_n(r.ctypes.data, wa.ctypes.data, wb.ctypes.data, len(a))
+    got = unwords(r)
+    assert all(g < (1 << 256) for g in got)
+    assert all((g - x + y) % P == 0 for g, x, y in zip(got, a, b))
+    # coverage: both corrections, and a borrow out of every word of the
+    # difference and of the first correction
+    assert sum(y - x > P for x, y in zip(a, b)) > 10
+    assert any(all(x % (1 << (32 * w)) < y % (1 << (32 * w))
+                   for w in range(1, 9)) for x, y in zip(a, b))
+    assert any(0 <= x - y + (1 << 256) < K1C
+               and ((x - y + (1 << 256)) >> 64) == 0 for x, y in zip(a, b))
+
+
+def test_fe_add_carry_out(lib):
+    """fe_add against ints where a + b carries out of 2^256, and where
+    the folded carry carries out again (a + b >= 2^257 - K1C)."""
+    edge = [(M256, 1), (M256, M256), (M256, K1C - 1), (M256, K1C),
+            (1 << 255, 1 << 255), (P, P), (M256 - 976, 977)]
+    a = [x for x, _ in edge] + run_pattern_values(3000)
+    b = [y for _, y in edge] + run_pattern_values(3000)
+    r = np.zeros((len(a), 8), np.uint32)
+    wa, wb = words(a), words(b)
+    lib.kt_fe_add_n(r.ctypes.data, wa.ctypes.data, wb.ctypes.data, len(a))
+    got = unwords(r)
+    assert all(g < (1 << 256) for g in got)
+    assert all((g - x - y) % P == 0 for g, x, y in zip(got, a, b))
+    assert sum(x + y >= 1 << 256 for x, y in zip(a, b)) > 100
+    assert any(x + y >= (1 << 257) - K1C for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name,jax_fn", [("kt_fe_add_n", "addmod"),
+                                         ("kt_fe_sub_n", "submod")])
+def test_add_sub_match_jax(lib, name, jax_fn):
+    """The carry-chain fe_add and fe_sub against the JAX package's addmod
+    and submod on the same inputs (the corner cases above, run-pattern
+    words and random values; 16-bit limbs on the JAX side), compared
+    canonical: bit-equal."""
+    a, b = operands()
+    a += [M256, M256, 0, 0, 5, 1 << 224] + run_pattern_values(1000)
+    b += [1, M256, M256, 1, P + 6, 1] + run_pattern_values(1000)
+    r = np.zeros((len(a), 8), np.uint32)
+    wa, wb = words(a), words(b)
+    getattr(lib, name)(r.ctypes.data, wa.ctypes.data, wb.ctypes.data,
+                       len(a))
+
+    def limbs(w):
+        out = np.empty((16, w.shape[0]), np.uint32)
+        out[0::2], out[1::2] = (w & 0xFFFF).T, (w >> 16).T
+        return jnp.asarray(out)
+
+    got = np.asarray(jax.jit(getattr(jfield, jax_fn))(limbs(wa), limbs(wb)))
+    want = unwords(np.ascontiguousarray((got[0::2] | (got[1::2] << 16)).T))
+    assert [g % P for g in unwords(r)] == [w % P for w in want]
+
+
 def test_sqr_inv_canon(lib):
     a, _ = operands()
     wa = words(a)
