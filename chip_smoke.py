@@ -5,10 +5,11 @@ Drives the port's main paths on one CUDA card -- the solve, its work
 files (checkpoint, resume, -wsplit merge, -winfo, -wcheck), the probe
 entry points, -check, the network, the multi-device herd (two lane
 shards, on two cards or side by side on one), fused launch windows, the
-multi-process herd, the weak-scaling harness and STATS batches of many
-keys -- and holds every kernel against its plain PyTorch version, phase
-by phase; any fault raises and the exit code is non-zero.  Each phase
-prints its seconds.
+multi-process herd, the weak-scaling harness, STATS batches of many
+keys and the graft entry (entry() and the sharded dry run) -- and
+holds every kernel against its plain PyTorch version, phase by phase;
+any fault raises and the exit code is non-zero.  Each phase prints its
+seconds.
 Run from the repository root:
 
     python3 chip_smoke.py
@@ -134,6 +135,15 @@ Phases:
      tolerance 0, in both modes; prints per mode the mean +- SE, dead,
      ticks, herd and walk seconds per key, the stock stream's mean and
      dead on the same keys, and the plain/-sym ratio beside sqrt(2);
+  13. (runs after 8, before 12) the graft entry,
+     kangaroo_torch.graft_entry: entry()'s window (4 steps, dp 16, 2
+     slots) at 512 lanes against the plain walk on the CPU over every
+     lane and at 2^22 lanes against the plain walk on PER_BLOCK lanes of
+     every block, called twice on the same arguments with equal
+     outputs; dryrun_multichip on 1 shard and on 2 shards of cuda:0 (64
+     lanes a shard, 2 steps) against the plain walk on the CPU over the
+     whole herd; python -m kangaroo_torch.graft_entry in a process of its
+     own; tolerance 0, py mod p;
   12. the kernels line (launches by path, the new paths' included), the
      card line and the result line.
 """
@@ -1790,6 +1800,103 @@ def phase_stats_pair():
     return plain, (sym["launches"], sym["mean"], sym["err"])
 
 
+def phase_graft():
+    """13: the graft entry, kangaroo_torch.graft_entry, on the card.
+    (a) entry()'s window at its contract width (512 lanes, which the
+    kernel walks widened to one block) bit-equal to the plain walk on
+    the CPU over every lane, and at the main path's width (2^22 lanes)
+    to the plain walk on the card on PER_BLOCK lanes of every block; fn
+    called twice on the same arguments gives equal outputs (it walks a
+    copy of the herd).  (b) dryrun_multichip on 1 shard and on 2 shards
+    of cuda:0, the shards' outputs concatenated in lane order bit-equal
+    to the plain walk on the CPU over the whole herd, the card's example
+    inputs equal to the CPU's.  (c) python -m kangaroo_torch.graft_entry
+    in a process of its own prints both OK lines.  Tolerance 0, py mod
+    p.  Returns the plain kernel's launches on the entry's and on the dry
+    run's path, and the largest error against the plain walk."""
+    from pathlib import Path
+
+    from kangaroo_torch import graft_entry as ge
+    from kangaroo_torch.ops import jump_ref
+    from kangaroo_torch.profile_walk import cuda_ms
+
+    tag = "13 graft"
+    cpu = torch.device("cpu")
+    entry_launches, worst = 0, 0
+    for n in (512, N_FULL):
+        t = time.time()
+        fn, args = ge.entry(n_lanes=n)
+        torch.cuda.synchronize()
+        herd_s = time.time() - t
+        _reset_counts()
+        out, ms = cuda_ms(lambda: fn(*args))
+        again = fn(*args)
+        torch.cuda.synchronize()
+        launches = _read_counts(False, f"{tag} entry")
+        entry_launches += launches
+        # every lane on the CPU at 512; at 2^22 PER_BLOCK lanes of every
+        # block on the card, as phase 3 does
+        small = n == 512
+        dev = args[0].device
+        idx = torch.arange(n, device=dev) if small else _subset(dev)
+        where = cpu if small else dev
+        want = jump_ref.jump_steps_with_dp(
+            *(a[..., idx].to(where) for a in args[:3]),
+            *(a.to(where) for a in args[3:]), nb_run=ge.NB_RUN,
+            slots=ge.SLOTS)
+        errs = _errors([o[..., idx].to(where) for o in out], want, False)
+        repeat = _errors(out, again, False)
+        print(f"[{tag} entry] {n} lanes x {ge.NB_RUN} steps, dp "
+              f"{ge.DP_SIZE}, {ge.SLOTS} slots: fn {ms:.3f} ms (CUDA "
+              f"events; the copy of the herd included), inputs "
+              f"{herd_s:.1f} s, {launches} launches for 2 calls, "
+              f"{int(out[3].sum())} DPs; plain walk on {where} over "
+              f"{idx.numel()} lanes: max |kernel - plain| {errs}; second "
+              f"call against the first {repeat}", flush=True)
+        worst = max(worst, *errs.values())
+        if any(errs.values()) or any(repeat.values()) or launches != 2:
+            raise SystemExit(f"{tag}: entry()'s window at {n} lanes is "
+                             f"wrong or not repeatable")
+        del fn, args, out, again
+    torch.cuda.empty_cache()
+    dry_launches = 0
+    for n, device in ((1, "cuda"), (2, ["cuda:0", "cuda:0"])):
+        _reset_counts()
+        outs = ge.dryrun_multichip(n, device=device)
+        torch.cuda.synchronize()
+        launches = _read_counts(False, f"{tag} dry run")
+        dry_launches += launches
+        lanes = ge.DRY_LANES_PER_DEVICE * n
+        card_in = ge._example_inputs(lanes)
+        cpu_in = ge._example_inputs(lanes, device="cpu")
+        in_errs = {name: int((a.to(cpu).long() - b.long()).abs().max())
+                   for name, a, b in zip(("px", "py", "d"), card_in,
+                                         cpu_in)}
+        want = jump_ref.jump_steps_with_dp(*cpu_in, nb_run=ge.DRY_NB_RUN,
+                                           slots=ge.SLOTS)
+        got = [torch.cat([o[k].to(cpu) for o in outs], dim=-1)
+               for k in range(len(NAMES))]
+        errs = _errors(got, want, False)
+        worst = max(worst, *errs.values())
+        print(f"[{tag} dry run] {n} shard(s) of {ge.DRY_LANES_PER_DEVICE} "
+              f"lanes on {device} x {ge.DRY_NB_RUN} steps: {launches} "
+              f"launches; max |shards - plain| {errs}; card inputs "
+              f"against the CPU's {in_errs}", flush=True)
+        if (any(errs.values()) or any(in_errs.values()) or launches != n
+                or len(outs) != n):
+            raise SystemExit(f"{tag}: the dry run on {n} shard(s) is wrong")
+    t = time.time()
+    r = subprocess.run([sys.executable, "-m", "kangaroo_torch.graft_entry"],
+                       cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=300)
+    lines = r.stdout.splitlines()
+    print(f"[{tag} module] python -m kangaroo_torch.graft_entry: exit "
+          f"{r.returncode} in {time.time() - t:.1f} s, {lines}", flush=True)
+    if r.returncode != 0 or lines != ["entry OK", "dryrun_multichip OK"]:
+        raise SystemExit(f"{tag}: the module failed: {r.stderr[-2000:]}")
+    return entry_launches, dry_launches, worst
+
+
 def timed(phase, fn, *args, **kw):
     """fn(*args, **kw), with its seconds printed and kept."""
     t = time.time()
@@ -1853,6 +1960,9 @@ def main():
     cmp_probes = timed("7 compare", phase_probe_compare, dev)
     probe_rows, probe_counts = timed("7", phase_probes)
     timed("8", phase_check)
+    graft_entry_k, graft_dry_k, graft_err = timed("13", phase_graft)
+    # the plain kernel's max_abs_err covers phase 13's checks too
+    cmp_plain = (max(cmp_plain[0], graft_err),) + tuple(cmp_plain[1:])
     kernels = [
         _entry("plain", launches, cmp_plain, ms, bound, by, {
             "5 in56 solve": launches, "6 in64 saving solve": w_save,
@@ -1862,7 +1972,8 @@ def main():
             "10a two shards": shard_a, "10b in64 2-shard solve": shard_b,
             "10n in64 -nwin 2": nwin, "10m 2 processes": multi,
             "10w weak scaling": weak,
-            "11 STATS plain": stats}),
+            "11 STATS plain": stats, "13 graft entry": graft_entry_k,
+            "13 graft dry run": graft_dry_k}),
         _entry("symmetry", sym_launches, cmp_sym, sym_ms, sym_bound,
                sym_by, {"5s in64 -sym solve": sym_launches,
                         "6s in64 -sym saving solve": ws_save,

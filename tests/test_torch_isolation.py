@@ -1,5 +1,6 @@
 """kangaroo_torch and chip_smoke.py import neither JAX nor kangaroo_tpu,
-nor the TPU probe scripts of scripts/.
+nor the TPU probe scripts of scripts/, nor the JAX entry module
+__graft_entry__.py.
 
 A fresh interpreter imports every module of the port (the probe entry
 points included: importing one runs nothing and needs no card) and the
@@ -28,10 +29,11 @@ import chip_smoke
 TPU_SCRIPTS = ("scripts", "pkbench", "probe_ops", "pkdelta", "pkinv",
                "layout_probe")
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith(("jax.", "jaxlib", "kangaroo_tpu"))
+             if m in ("jax", "__graft_entry__")
+             or m.startswith(("jax.", "jaxlib", "kangaroo_tpu"))
              or m.split(".")[0] in TPU_SCRIPTS)
-# the work-file, network, multi-device and STATS modules are among
-# those imported
+# the work-file, network, multi-device, STATS and graft-entry modules
+# are among those imported
 missing = [m for m in ("kangaroo_torch.io.backup", "kangaroo_torch.io.merge",
                        "kangaroo_torch.utils.packing",
                        "kangaroo_torch.native", "kangaroo_torch.core.check",
@@ -42,7 +44,8 @@ missing = [m for m in ("kangaroo_torch.io.backup", "kangaroo_torch.io.merge",
                        "kangaroo_torch.parallel.multihost",
                        "kangaroo_torch.parallel.weak_scaling",
                        "kangaroo_torch.stats_batch",
-                       "kangaroo_torch.stats_summary")
+                       "kangaroo_torch.stats_summary",
+                       "kangaroo_torch.graft_entry")
            if m not in names]
 print(len(names), "modules;", "leaked:", bad, "missing:", missing)
 sys.exit(1 if bad or missing or len(names) < 15 else 0)
