@@ -61,17 +61,20 @@ Phases:
      count the splits' less the merge's dead), a key the merge finds the
      fixture's;
   7. probes: each probe kernel (P1 field chains, P2 raw chains, P3 walk
-     variants and base at each G, P4 inversion chains) launched as its
-     entry point
+     variants and base at each G, P4 inversion chains in the walk's
+     layout and in the on-chip form) launched as its entry point
      launches it (inputs, lanes, geometry, rounds; P1's fe_inv and P2
      at fewer rounds) against its plain version on lanes of every block
      -- whole thread groups where a thread owns G lanes -- (tolerance
-     0; f32 rtol 1e-5), P1's add-class chains (fe_sub, fe_add, fe_fold)
-     also on 2^16 lanes of operands whose words are 0, 1, 2^32 - 2 and
-     2^32 - 1 (every lane, 1 and 256 rounds), then the five probe entry
-     points at their default shapes, launch counts read around them,
-     and the SASS instructions per round of those three chains beside
-     the issue slots their bound counts;
+     0; f32 rtol 1e-5), the on-chip P4 rows also against the walk
+     layout's kernel on the same lanes where the function is the same
+     (cur, none; nodiv at G 32), P1's add-class chains (fe_sub,
+     fe_add, fe_fold) also on 2^16 lanes of operands whose words are 0,
+     1, 2^32 - 2 and 2^32 - 1 (every lane, 1 and 256 rounds), then the
+     five probe entry points at their default shapes, launch counts
+     read around them, and the SASS instructions per round of those
+     three chains (all, and those of the ALU pipe) beside the slots
+     their bound counts;
   8. check: -check (run_self_check) on the card, launch counts read
      around it;
   9. network: the CLI's DP server (-s -d 14 -sp 0, in64) in a process
@@ -1084,6 +1087,21 @@ def _group_sample(blocks, group, rs, want=()):
     return lanes.reshape(-1, t, group).transpose(0, 2, 1).reshape(-1)
 
 
+def _chip_sets(w, group, rs):
+    """The lane sets (probe_ref.lane_sets) of one thread of each block of
+    THREADS threads x `group` lanes on w lanes: thread 0 of the first
+    block, the last thread of the last, random threads elsewhere;
+    (blocks, group)."""
+    from kangaroo_torch.ops import probe_cuda, probe_ref
+
+    t = probe_cuda.THREADS
+    blocks = w // (t * group)
+    pick = rs.randint(0, t, blocks)
+    pick[0], pick[-1] = 0, t - 1
+    return probe_ref.lane_sets(w, group).numpy()[
+        np.arange(blocks) * t + pick]
+
+
 def _run_words(n, seed, dev):
     """(16, n) int32 limbs of field values whose 32-bit words are drawn
     from 0, 1, 2^32 - 2 and 2^32 - 1."""
@@ -1231,15 +1249,45 @@ def phase_probe_compare(dev):
 
     threads = (1 << pkinv.W_LOG2) // grp
     for name in pkinv.DEFAULT:
-        var, g = pkinv.parse(name)
-        x = pkinv.inputs(threads * g, dev)
-        idx = torch.from_numpy(_group_sample(threads // thr, g, rs)).to(dev)
+        form, var, g = pkinv.parse(name)
+        if form == "walk":
+            x = pkinv.inputs(threads * g, dev)
+            idx = torch.from_numpy(
+                _group_sample(threads // thr, g, rs)).to(dev)
+            p, p_ms = cuda_ms(lambda: probe_ref.inv_chain(
+                var, x[:, idx], pkinv.ITERS, g))
+            k = probe_cuda.inv_chain(var, x.clone(), pkinv.ITERS, g)
+            record(probe_cuda.kernel_key("inv_chain", var, g), k[:, idx], p,
+                   p_ms,
+                   f"{x.shape[1]} lanes x {pkinv.ITERS} iterations, G {g}",
+                   f"{idx.numel()} lanes (every lane of one thread per "
+                   f"block)")
+            del k, x
+            continue
+        # the on-chip form at its entry point's lanes (one wave); also
+        # against the walk layout's kernel on the same lanes where the
+        # function is the same: cur and none at any G, nodiv at G 32
+        w = pkinv.chip_lanes(var, g, dev)
+        x = pkinv.inputs(w, dev)
+        sets = _chip_sets(w, g, rs)
+        idx = torch.from_numpy(sets.reshape(-1)).to(dev)
+        local = torch.arange(idx.numel()).reshape(sets.shape)
         p, p_ms = cuda_ms(lambda: probe_ref.inv_chain(
-            var, x[:, idx], pkinv.ITERS, g))
-        k = probe_cuda.inv_chain(var, x.clone(), pkinv.ITERS, g)
-        record(probe_cuda.kernel_key("inv_chain", var, g), k[:, idx], p,
-               p_ms, f"{x.shape[1]} lanes x {pkinv.ITERS} iterations, G {g}",
+            var, x[:, idx], pkinv.ITERS, sets=local))
+        k = probe_cuda.inv_chip(var, x.clone(), pkinv.ITERS, g)
+        key = probe_cuda.kernel_key("inv_chip", var, g)
+        shape = f"{w} lanes x {pkinv.ITERS} iterations, G {g}"
+        record(key, k[:, idx], p, p_ms, shape,
                f"{idx.numel()} lanes (every lane of one thread per block)")
+        walk_g = {"cur": 32, "none": grp}.get(var, 32 if g == 32 else 0)
+        if walk_g:
+            m = w - w % (thr * walk_g)
+            wk = probe_cuda.inv_chain(var, x[:, :m].contiguous(),
+                                      pkinv.ITERS, walk_g)
+            record(key, k[:, :m], wk, None, shape,
+                   f"the walk layout's {var} at G {walk_g} on lanes "
+                   f"0..{m - 1}")
+            del wk
         del k, x
     torch.cuda.synchronize()
     print(f"[7 probes, compare] {len(res)} probe kernels bit-equal to their "
@@ -1276,10 +1324,14 @@ def phase_probes():
           f"{counts}", flush=True)
     print("[7 probes] add-class chains, SASS instructions per round of "
           "kt_field_chain<op> (a loop trip over its rounds, the loop's "
-          "counter, compare and branch included) against the bound's issue "
-          "slots: " + "; ".join(
+          "counter, compare and branch included) against the bound's "
+          "slots, and those of the ALU pipe (the design's floor): "
+          + "; ".join(
               f"{r['key'].split('/')[1]} {r['sass']['per_round']:.2f} against "
-              f"{r['sass']['bound_slots']}" for r in rows["pkbench"]
+              f"{r['sass']['bound_slots']}, ALU "
+              f"{r['sass']['alu_per_round']:.2f} ("
+              f"{r['design_bound_ms']:.3f} ms against the bound's "
+              f"{r['bound_ms']:.3f})" for r in rows["pkbench"]
               if "sass" in r), flush=True)
     if idle:
         raise SystemExit(f"probe kernels not launched by their entry "
@@ -1341,6 +1393,13 @@ def _probe_entries(rows, counts, cmp):
             if "sass" in r:
                 out[-1]["sass_per_round"] = r["sass"]["per_round"]
                 out[-1]["bound_slots_per_round"] = r["sass"]["bound_slots"]
+                out[-1]["sass_alu_per_round"] = r["sass"]["alu_per_round"]
+            if "design_bound_ms" in r:
+                out[-1]["design_bound_ms"] = r["design_bound_ms"]
+            if mod == "pkinv":
+                out[-1].update({k: r[k] for k in (
+                    "ns_per_lane", "regs", "local_bytes", "smem",
+                    "blocks_per_sm")})
     return out
 
 

@@ -140,6 +140,22 @@ struct InvHost {
     }
 };
 
+// The on-chip form: each block's shared memory is a host buffer that
+// its threads, run one after another, share as on the card.
+struct ChipHost {
+    int32_t* x;
+    size_t n;
+    int iters;
+    template <int VAR, int G>
+    int run() {
+        std::vector<uint32_t> sm(kt::InvChip<VAR, G>::smem / 4);
+        for (size_t blk = 0; blk < n / (kt::THREADS * G); ++blk)
+            for (int t = 0; t < kt::THREADS; ++t)
+                kt::inv_chip_thread<VAR, G>(x, n, blk, t, iters, sm.data());
+        return 0;
+    }
+};
+
 }  // namespace
 
 extern "C" {
@@ -209,5 +225,14 @@ int kt_inv_chain_host(int variant, int group, int32_t* x, int n,
     InvHost h{x, (size_t)n, iters};
     return kt::with_inv_variant(variant, group, h) == 0 ? 0 : 1;
 }
+
+int kt_inv_chip_host(int variant, int group, int32_t* x, int n, int iters) {
+    if (group <= 0 || n <= 0 || n % (kt::THREADS * group) != 0 || iters < 0)
+        return 1;
+    ChipHost h{x, (size_t)n, iters};
+    return kt::with_inv_chip(variant, group, h) == 0 ? 0 : 1;
+}
+
+int kt_inv_chip_run_host() { return kt::CHIP_RUN; }
 
 }  // extern "C"

@@ -26,18 +26,30 @@
 //                          as well (the G sweep).
 //   kt_inv_chain<Var, G>   replaces scripts/pkinv.py:129 run: the walk's
 //                          per-thread Montgomery inversion over G lanes
-//                          (cur), without its fe_inv (nodiv), or none.
+//                          (cur), without its fe_inv (nodiv), or none,
+//                          in the walk's layout: every lane read and
+//                          written in device memory in both passes of
+//                          every iteration, the G prefix products in
+//                          local memory (the walk's attribution).
+//   kt_inv_chip<Var, G>    the same function as the TPU kernel designs
+//                          it (its (16, W) block in VMEM for the whole
+//                          loop): the thread's G lanes and their prefix
+//                          products in shared memory for the whole
+//                          launch, x read and written once, no local
+//                          memory; one wave of the blocks that stay
+//                          resident (probes.cuh, inv_chip_thread).
 //
 // What bounds them: P1's multiply ops, P3 and P4 issue 32-bit integer
 // multiply-adds (the walk's bound); the add, subtract, canonicalize and
-// fold chains integer adds and logic ops; the gather shared-memory
-// loads; P2 the one pipe its instruction runs on.  Each state array is
-// read once and written once per launch, so every probe is bound by
-// operations at its default shape (ops/probe_cuda.py counts them).  The
-// bodies live in probes.cuh and walk.cuh, built by g++ for the CPU
-// tests too; this file adds the launches, a table of kernels for the
-// attributes and occupancy, and the C entry points bound with ctypes
-// by kangaroo_torch/ops/probe_cuda.py.
+// fold chains, and P4's none, integer adds and logic ops on the ALU
+// pipe; the gather shared-memory loads; P2 the one pipe its instruction
+// runs on.  Each state array is read once and written once per launch,
+// so every probe is bound by operations at its default shape
+// (ops/probe_cuda.py counts them).  The bodies live in probes.cuh and
+// walk.cuh, built by g++ for the CPU tests too; this file adds the
+// launches, a table of kernels for the attributes and occupancy, and
+// the C entry points bound with ctypes by kangaroo_torch/ops/
+// probe_cuda.py.
 //
 // Built in parts, one nvcc each, all started together and linked into
 // one library (ops/probe_cuda.py), so that the build takes the time of
@@ -46,7 +58,8 @@
 // selects what a part compiles: 0 the entry points, P1's one-lane
 // chains but fe_inv, and P2; 1 P1's fe_inv; 2 P1's step; 3 and 4 P4
 // below and from G = 128; 5-8 the walk variants of P3 with ids 0-2
-// (base at each G), 3-4, 5-6, 7-8.  Without KT_PROBE_PART one compile builds everything.
+// (base at each G), 3-4, 5-6, 7-8; 9 and 10 P4's on-chip form, cur and
+// the others.  Without KT_PROBE_PART one compile builds everything.
 #include <cuda_runtime.h>
 
 #include "probes.cuh"
@@ -71,6 +84,8 @@ FieldFn kt_field_kernel_step(int op);
 RawFn kt_raw_kernel(int op, int ilp);
 InvFn kt_inv_kernel_below128(int var, int group);
 InvFn kt_inv_kernel_from128(int var, int group);
+InvFn kt_inv_chip_kernel_cur(int var, int group);
+InvFn kt_inv_chip_kernel_rest(int var, int group);
 DeltaFn kt_delta_kernel_0_3(int id, int group);
 DeltaFn kt_delta_kernel_3_5(int id, int group);
 DeltaFn kt_delta_kernel_5_7(int id, int group);
@@ -137,6 +152,33 @@ InvFn inv_kernel_in(int var, int group) {
     kt::with_inv_variant(var, group, p);
     return p.fn;
 }
+
+template <int VAR, int G>
+__global__ void __launch_bounds__(kt::THREADS,
+                                  kt::InvChip<VAR, G>::min_blocks)
+kt_inv_chip(int32_t* x, size_t n, int iters) {
+    extern __shared__ uint32_t sm[];
+    kt::inv_chip_thread<VAR, G>(x, n, blockIdx.x, threadIdx.x, iters, sm);
+}
+
+// The on-chip kernel of (VAR, G) for the variants VARS (only those are
+// instantiated), or null; and its dynamic shared memory per block.
+template <int... VARS>
+struct ChipPick {
+    InvFn fn = nullptr;
+    template <int VAR, int G>
+    int run() {
+        if constexpr (((VAR == VARS) || ...)) fn = kt_inv_chip<VAR, G>;
+        return 0;
+    }
+};
+
+struct ChipSmem {
+    template <int VAR, int G>
+    int run() {
+        return kt::InvChip<VAR, G>::smem;
+    }
+};
 
 template <int OP>
 __global__ void __launch_bounds__(kt::THREADS)
@@ -222,15 +264,21 @@ InvFn inv_kernel(int var, int group) {
     return fn ? fn : kt_inv_kernel_from128(var, group);
 }
 
+InvFn inv_chip_kernel(int var, int group) {
+    const InvFn fn = kt_inv_chip_kernel_cur(var, group);
+    return fn ? fn : kt_inv_chip_kernel_rest(var, group);
+}
+
 // The kernel of (family, id, arg): 0 field chain op, 1 raw chain (op,
 // ilp), 2 walk variant (variant, group), 3 inversion chain (variant,
-// group).
+// group), 4 its on-chip form (variant, group).
 const void* probe_kernel(int family, int id, int arg) {
     switch (family) {
         case 0: return (const void*)field_kernel(id);
         case 1: return (const void*)kt_raw_kernel(id, arg);
         case 2: return (const void*)delta_kernel(id, arg);
         case 3: return (const void*)inv_kernel(id, arg);
+        case 4: return (const void*)inv_chip_kernel(id, arg);
         default: return nullptr;
     }
 }
@@ -273,6 +321,20 @@ InvFn kt_inv_kernel_below128(int var, int group) {
 #if KT_PART(4)
 InvFn kt_inv_kernel_from128(int var, int group) {
     return inv_kernel_in<128, 1 << 30>(var, group);
+}
+#endif
+#if KT_PART(9)
+InvFn kt_inv_chip_kernel_cur(int var, int group) {
+    ChipPick<kt::INV_CUR> p;
+    kt::with_inv_chip(var, group, p);
+    return p.fn;
+}
+#endif
+#if KT_PART(10)
+InvFn kt_inv_chip_kernel_rest(int var, int group) {
+    ChipPick<kt::INV_NODIV, kt::INV_NONE> p;
+    kt::with_inv_chip(var, group, p);
+    return p.fn;
 }
 #endif
 #if KT_PART(5)
@@ -390,6 +452,32 @@ int kt_inv_chain_launch(int variant, int group, void* x, int n, int iters,
                                               (size_t)n, iters);
     return (int)cudaGetLastError();
 }
+
+// P4's on-chip form: `iters` rounds of variant (0 cur, 1 nodiv, 2 none)
+// at G = group lanes per thread on x (16, n) in place, n a multiple of
+// THREADS * G, with kt_inv_chip_smem bytes of shared memory a block.
+int kt_inv_chip_launch(int variant, int group, void* x, int n, int iters,
+                       void* stream) {
+    const InvFn fn = inv_chip_kernel(variant, group);
+    if (!fn || n <= 0 || n % (kt::THREADS * group) != 0 || iters < 0)
+        return (int)cudaErrorInvalidValue;
+    const int smem = kt::with_inv_chip(variant, group, ChipSmem{});
+    const cudaError_t e = allow_smem((const void*)fn, smem);
+    if (e != cudaSuccess) return (int)e;
+    fn<<<n / (kt::THREADS * group), kt::THREADS, (size_t)smem,
+         static_cast<cudaStream_t>(stream)>>>(static_cast<int32_t*>(x),
+                                              (size_t)n, iters);
+    return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory per block of the on-chip kernel of (variant,
+// group), or -1 where there is no such kernel.
+int kt_inv_chip_smem(int variant, int group) {
+    return kt::with_inv_chip(variant, group, ChipSmem{});
+}
+
+// Lanes of a run of the on-chip kernel (probes.cuh CHIP_RUN).
+int kt_inv_chip_run() { return kt::CHIP_RUN; }
 
 // Attributes of the kernel of (family, id, arg) (see probe_kernel) with
 // smem bytes of dynamic shared memory: out[0] registers per thread,

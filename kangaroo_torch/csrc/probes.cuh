@@ -11,7 +11,9 @@
 //   P3 is walk_thread itself with a variant type (walk.cuh), and base
 //      also at G = 32 and 128; the variants are defined here.
 //   P4 inversion chains: the walk's per-thread Montgomery inversion
-//      over G lanes, x <- canon(fn(x) - x) | 1 `iters` times.
+//      over G lanes, x <- canon(fn(x) - x) | 1 `iters` times, in the
+//      walk's layout (state in device and local memory) and in an
+//      on-chip form (state in shared memory for the whole launch).
 //
 // Every non-field operation of a chain (the gather's xor, the step's
 // x3 ^ y3, P4's | 1) reads a canonical value, so that the chain does
@@ -399,6 +401,155 @@ KT_HD void inv_chain_thread(int32_t* px, size_t n, size_t blk, int t,
                 store_words(px, y, 8, n, lane);
             }
         }
+    }
+}
+
+// ---- P4, on-chip form: the state never leaves the SM ----
+//
+// The same chain on the same lane sets as inv_chain_thread (thread t of
+// block blk owns lanes blk * THREADS * G + g * THREADS + t, g < G), so
+// that its output equals the walk layout's at the same G.  What differs
+// is where the state lives: the thread's G lanes of x and their prefix
+// products stay in shared memory for the whole launch, so that x is
+// read from device memory once and written once and nothing goes to
+// local memory.  Each 32-byte slot s of thread t lies word-transposed,
+// word w at sm[(s * 8 + w) * THREADS + t], so that a warp's 32 threads
+// touch 32 consecutive words (no bank conflict); no thread reads
+// another's slots, so the body needs no barrier.
+//
+// Shared memory, not the registers, bounds the lanes an SM holds: ~4096
+// at 56 B a lane.  So one block of 4 warps an SM runs G = 32, too few
+// warps to hide a multiply chain's latency.  The thread's G lanes are
+// therefore K = G / CHIP_RUN runs of CHIP_RUN consecutive slots whose
+// prefix products advance side by side (K independent multiply chains);
+// Montgomery's trick over the K run products in registers leaves one
+// fe_inv a thread.  Slots 0..G-1 hold x (each overwritten by its next
+// value in the unwind, after its last read); run k's prefix products
+// acc[1..CHIP_RUN-2] lie at slots G + k * (CHIP_RUN - 2) + 0.. (its
+// acc[0] is x's slot, its last product stays in registers).  none keeps
+// x only.
+//
+// Shared memory a block: InvChip::slots x 32 B x THREADS; with 1 KB
+// reserved a block and 228 KB an SM that gives 2 and 1 resident blocks
+// of cur and nodiv at G = 16, 32 (K = 2, 4): 4096 lanes an SM each
+// time.  min_blocks is what the kernel's launch bounds ask for, so that
+// its registers do not hold it below that.
+constexpr int CHIP_RUN = 8;
+
+template <int VAR, int G>
+struct InvChip {
+    static_assert(G % CHIP_RUN == 0, "G is a whole number of runs");
+    static constexpr int runs = G / CHIP_RUN;
+    static constexpr int slots =
+        VAR == INV_NONE ? G : G + runs * (CHIP_RUN - 2);
+    static constexpr int smem = slots * 32 * THREADS;
+    static constexpr int min_blocks = (228 * 1024) / (smem + 1024);
+};
+
+KT_HD void chip_load(uint32_t r[8], const uint32_t* sm, int s, int t) {
+    for (int w = 0; w < 8; ++w) r[w] = sm[(s * 8 + w) * THREADS + t];
+}
+
+KT_HD void chip_store(uint32_t* sm, const uint32_t r[8], int s, int t) {
+    for (int w = 0; w < 8; ++w) sm[(s * 8 + w) * THREADS + t] = r[w];
+}
+
+// `iters` rounds for thread t of block blk on its G lanes of x (16, n),
+// in place; sm is the block's shared memory (InvChip<VAR, G>::smem
+// bytes).
+template <int VAR, int G>
+KT_HD void inv_chip_thread(int32_t* px, size_t n, size_t blk, int t,
+                           int iters, uint32_t* sm) {
+    constexpr int K = InvChip<VAR, G>::runs, L = CHIP_RUN;
+    const size_t base = blk * (size_t)(THREADS * G) + (size_t)t;
+    uint32_t x[8], y[8];
+    for (int g = 0; g < G; ++g) {
+        load_words(x, 8, px, n, base + (size_t)g * THREADS);
+        chip_store(sm, x, g, t);
+    }
+    for (int it = 0; it < iters; ++it) {
+        if constexpr (VAR == INV_NONE) {
+#if defined(__CUDA_ARCH__)
+#pragma unroll 4
+#endif
+            for (int g = 0; g < G; ++g) {
+                chip_load(x, sm, g, t);
+                fe_sub(y, x, x);
+                inv_chain_next(y, x);
+                chip_store(sm, y, g, t);
+            }
+        } else {
+            // prod[k]: run k's prefix product, then its whole product;
+            // inv[k]: the products of runs 0..k, then the inverse of run
+            // k's running prefix in the unwind
+            uint32_t prod[K][8], inv[K][8];
+            KT_UNROLL
+            for (int k = 0; k < K; ++k) chip_load(prod[k], sm, k * L, t);
+            for (int j = 1; j < L; ++j) {
+                KT_UNROLL
+                for (int k = 0; k < K; ++k) {
+                    chip_load(x, sm, k * L + j, t);
+                    fe_mul(prod[k], prod[k], x);
+                    if (j < L - 1)
+                        chip_store(sm, prod[k], G + k * (L - 2) + j - 1, t);
+                }
+            }
+            fe_copy(inv[0], prod[0]);
+            KT_UNROLL
+            for (int k = 1; k < K; ++k) fe_mul(inv[k], inv[k - 1], prod[k]);
+            if constexpr (VAR == INV_CUR)
+                fe_inv(y, inv[K - 1]);
+            else
+                fe_copy(y, inv[K - 1]);
+            KT_UNROLL
+            for (int k = K - 1; k > 0; --k) {
+                fe_mul(inv[k], y, inv[k - 1]);
+                fe_mul(y, y, prod[k]);
+            }
+            fe_copy(inv[0], y);
+            for (int j = L - 1; j > 0; --j) {
+                KT_UNROLL
+                for (int k = 0; k < K; ++k) {
+                    chip_load(x, sm, k * L + j, t);
+                    chip_load(y, sm, j == 1 ? k * L : G + k * (L - 2) + j - 2,
+                              t);
+                    fe_mul(y, inv[k], y);
+                    fe_mul(inv[k], inv[k], x);
+                    inv_chain_next(y, x);
+                    chip_store(sm, y, k * L + j, t);
+                }
+            }
+            KT_UNROLL
+            for (int k = 0; k < K; ++k) {
+                chip_load(x, sm, k * L, t);
+                inv_chain_next(inv[k], x);
+                chip_store(sm, inv[k], k * L, t);
+            }
+        }
+    }
+    for (int g = 0; g < G; ++g) {
+        chip_load(x, sm, g, t);
+        store_words(px, x, 8, n, base + (size_t)g * THREADS);
+    }
+}
+
+// f.template run<VAR, G>() over the on-chip form's instantiated pairs:
+// every variant at G in {16, 32}; -1 for another pair.
+template <class F>
+int with_inv_chip(int var, int group, F&& f) {
+    if (var < 0 || var >= INV_NVARIANTS) return -1;
+    auto at = [&](auto vc) {
+        constexpr int V = decltype(vc)::value;
+        switch (group) {
+            case 16: return f.template run<V, 16>();
+            case 32: return f.template run<V, 32>();
+            default: return -1;
+        }
+    };
+    switch (var) {
+        case INV_CUR: return at(std::integral_constant<int, INV_CUR>{});
+        case INV_NODIV: return at(std::integral_constant<int, INV_NODIV>{});
+        default: return at(std::integral_constant<int, INV_NONE>{});
     }
 }
 

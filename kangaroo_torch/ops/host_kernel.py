@@ -50,6 +50,8 @@ _SIGNATURES = {
     "kt_raw_chain_host": ([_I, _I, _P, _I, _I], _I),
     "kt_delta_host": ([_I, _I] + [_P] * 7 + [_I] * 3 + [_P] * 5, _I),
     "kt_inv_chain_host": ([_I, _I, _P, _I, _I], _I),
+    "kt_inv_chip_host": ([_I, _I, _P, _I, _I], _I),
+    "kt_inv_chip_run_host": ([], _I),
 }
 
 
@@ -198,3 +200,17 @@ def inv_chain(variant: str, x: torch.Tensor, iters: int,
     call("kt_inv_chain_host", INV_VARIANTS.index(variant), group,
          x.data_ptr(), x.shape[1], iters)
     return x
+
+
+def inv_chip(variant: str, x: torch.Tensor, iters: int,
+             group: int) -> torch.Tensor:
+    """P4's on-chip body (probe_cuda.inv_chip) on the host, x in place."""
+    _need(x, (16, x.shape[1]))
+    call("kt_inv_chip_host", INV_VARIANTS.index(variant), group,
+         x.data_ptr(), x.shape[1], iters)
+    return x
+
+
+def chip_run() -> int:
+    """Lanes of a run of the on-chip body (probes.cuh CHIP_RUN)."""
+    return load().kt_inv_chip_run_host()

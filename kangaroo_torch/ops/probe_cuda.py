@@ -1,6 +1,6 @@
 """The probe kernels on the card: wrapper of `csrc/probe_kernels.cu`.
 
-Replaces the repository's five TPU probe kernels with four hand-written
+Replaces the repository's five TPU probe kernels with five hand-written
 CUDA C++ kernel templates for sm_90a, built by nvcc at first use and
 bound with ctypes:
 
@@ -8,7 +8,11 @@ bound with ctypes:
   raw_chain    P2 `kt_raw_chain<Op, ILP>`, scripts/probe_ops.py:49 and
                scripts/layout_probe.py:109;
   delta_walk   P3 `kt_delta_kernel<V, G>`, scripts/pkdelta.py:213;
-  inv_chain    P4 `kt_inv_chain<Var, G>`, scripts/pkinv.py:129.
+  inv_chain    P4 `kt_inv_chain<Var, G>`, scripts/pkinv.py:129, in the
+               walk's layout;
+  inv_chip     P4 `kt_inv_chip<Var, G>`, the same function with its state
+               in shared memory for the whole launch (as the TPU kernel
+               keeps its block in VMEM).
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor
 takes the plain version in `probe_ref`.  On the card the state tensor
@@ -17,10 +21,11 @@ alone); the launch goes on the current stream and does not synchronize.
 `LAUNCHES` counts the launches per kernel, keyed as `kernel_key` names
 them.
 
-What bounds each: `bound_ms` takes the issue slots per element and round
-of each instruction class, counted from the source (`*_counts` below),
-over the card's derived peak for that class, against the bytes the
-function moves (each state array read and written once).
+What bounds each: `bound_ms` takes the slots per element and round of
+each instruction class, counted from the source (`*_counts` below),
+over the card's derived peak for that class, the slowest class and the
+issue rate over them all, against the bytes the function moves (each
+state array read and written once).
 """
 
 from __future__ import annotations
@@ -52,6 +57,9 @@ RAW_ILPS["empty"] = (1,)
 # G of kt_inv_chain per variant
 INV_GROUPS = {"cur": (32, 64, 128, 256), "nodiv": (32, 64, 128, 256),
               "none": (GROUP,)}
+# G of kt_inv_chip, every variant: 2 and 1 resident blocks of cur and
+# nodiv per SM by their shared memory, 4096 lanes an SM each time
+CHIP_GROUPS = (16, 32)
 # G of kt_delta_kernel per walk variant: base also at 32 and 128 (the G
 # sweep), the others at the walk kernels' GROUP
 DELTA_GROUPS = {v: (GROUP,) for v in DELTA_VARIANTS}
@@ -60,28 +68,40 @@ DELTA_GROUPS["base"] = (32, 64, 128)
 # ---- the card's derived peaks (H100 SXM, compute capability 9.0) ----
 # Per SM and clock (NVIDIA's arithmetic-throughput table for compute
 # capability 9.0):
-# 64 32-bit integer multiply-adds, 128 fp32 adds, multiplies and fused
-# multiply-adds, 32 shared-memory words, and one warp instruction per
-# scheduler and clock (128 thread instructions).  Integer adds, logic
-# ops and shifts have no class of their own here: nvcc issues them on
-# the ALU pipe or the multiply-add pipe (IMAD.IADD, IMAD.SHL, IMAD.MOV),
-# so they count against the issue rate only.  The clock is the one
-# implied by jump_cuda.IMAD_PEAK (half the data sheet's 67 TFLOP/s fp32
-# rate over 64 x 132 SMs).  Derived, not measured: the raw_chain rows
-# measure them.
+# 64 32-bit integer multiply-adds, 64 instructions of the ALU pipe, 128
+# fp32 adds, multiplies and fused multiply-adds, 32 shared-memory words
+# (loads and stores), and one warp instruction per scheduler and clock
+# (128 thread instructions).  The counts are the function's need, each
+# operation in the instruction forms the two integer pipes offer, by one
+# rule: class "alu" holds logic ops and shifts (LOP3, SHF, LEA.HI: only
+# the ALU pipe issues them); class "int" holds two-term integer adds and
+# subtracts, with or without a carry (every word of a carry chain), and
+# moves, which either pipe issues one for one (IADD3 and IADD3.X there,
+# IMAD.IADD, IMAD.X and IMAD.MOV on the multiply-add pipe), so they
+# count against the issue rate only: the best split of the two pipes;
+# class "fused" holds an instruction that fuses two integer ops on the
+# ALU pipe (a three-term IADD3, LEA.HI's shift and add) and takes two
+# slots on either pipe otherwise, at its best mix (bound_ms).  How many
+# of a kernel's instructions nvcc puts on the ALU pipe is this design's
+# reading, beside the bound (probes/pkbench.py, probes/pkinv.py).  The
+# clock is the one implied by jump_cuda.IMAD_PEAK (half the data sheet's
+# 67 TFLOP/s fp32 rate over 64 x 132 SMs).  Derived, not measured: the
+# raw_chain rows measure them.
 SMS = 132
 CLOCK_HZ = jump_cuda.IMAD_PEAK / (64 * SMS)
-PER_SM_CLOCK = {"imad": 64, "fp32": 128, "lds": 32, "issue": 128}
+PER_SM_CLOCK = {"imad": 64, "alu": 64, "fp32": 128, "lds": 32,
+                "issue": 128}
 PEAK = {k: v * SMS * CLOCK_HZ for k, v in PER_SM_CLOCK.items()}
 
 # Integer add, logic and shift instructions of one safegcd inversion,
 # counted from field.cuh: 600 divsteps of ~27 (the sign and parity
 # masks, three conditional negate-and-adds, the zeta update, three
 # conditional adds, three shifts), and per batch 2 x 2 accumulators x 9
-# limbs of a 64-bit shift pair and a mask.
+# limbs of a 64-bit shift pair and a mask.  Not split by kind: class
+# "int" (the looser reading, a bound all the same).
 INV_ALU = 20 * (30 * 27 + 4 * 9 * 4)
-# Integer add and logic instructions per op, counted from field.cuh at
-# one instruction per word of a carry or borrow chain (the carry flag
+# Integer add instructions per op, counted from field.cuh at one
+# instruction per word of a carry or borrow chain (the carry flag
 # carries it), over the words each chain can reach: fe_sub the 8-word
 # difference, an 8-word correction (its borrow can run to the top) and
 # a second that ends at word 1 (it runs only from r >= 2^256 - K1C);
@@ -90,40 +110,46 @@ INV_ALU = 20 * (30 * 27 + 4 * 9 * 4)
 # carry's k2 * 977 (1); fe_add the 8-word sum, a fold of its carry over
 # 8 words and of that pass's carry over 2 (the low part is < K1C), each
 # carry times 977 one IMAD; fe_canon the 8-word carry chain of r +
-# (2^32 + 977) (the copy only when it carries out).
-SUB_ALU = 18
-FOLD = {"alu": 11, "imad": 3}
-ADD = {"alu": 18, "imad": 2}
-CANON_ALU = 8
+# (2^32 + 977) (the copy only when it carries out).  Carry chains: class
+# "int".  (nvcc puts the sub, add and fold chains' carries on the ALU
+# pipe, 19, 17 and 10 instructions a round, and part of fe_canon's on the
+# multiply-add pipe: the design's reading, probes/pkbench.py.)
+SUB_INT = 18
+CANON_INT = 8
 
 FIELD_COUNTS = {
     "mul": {"imad": jump_cuda.MUL_IMAD},
     "sqr": {"imad": jump_cuda.SQR_IMAD},
-    "sub": {"alu": SUB_ALU},
-    "add": ADD,
-    "fold": FOLD,
-    "canon": {"alu": CANON_ALU},
-    "inv": {"imad": jump_cuda.INV_IMAD, "alu": INV_ALU + 2 * CANON_ALU},
+    "sub": {"int": SUB_INT},
+    "add": {"int": 18, "imad": 2},
+    "fold": {"int": 11, "imad": 3},
+    "canon": {"int": CANON_INT},
+    "inv": {"imad": jump_cuda.INV_IMAD, "int": INV_ALU + 2 * CANON_INT},
     "gather": {"alu": 9, "lds": 8},   # index, 8 xors; 8 table words
 }
 # per element and iteration, the loop-index mix shared by a thread's
 # chains not counted; a 64-bit wide multiply-add counted as 2 IMAD.  The
 # empty loop's x + 1 per iteration is summed in closed form by the
-# compilers: no operation per iteration.
+# compilers: no operation per iteration.  u32_add: the xor and a + b +
+# u (fused: one IADD3, or two adds).  mask16 and shr16: a does not
+# depend on b, so b's xors of two iterations fuse into one three-input
+# LOP3 (shr16's SASS fuses further, 8 LOP3 a trip of 28
+# element-iterations: probes/probe_ops.py prints the trip); mask16's
+# mask and add, shr16's shift and add (fused: one LEA.HI).
 RAW_COUNTS = {
-    "u32_add": {"alu": 2}, "u32_mul": {"imad": 1, "alu": 1},
-    "mask16": {"alu": 3}, "shr16": {"alu": 3},
-    "i32_mul": {"imad": 1, "alu": 1}, "f32_add": {"fp32": 3},
+    "u32_add": {"alu": 1, "fused": 1}, "u32_mul": {"imad": 1, "alu": 1},
+    "mask16": {"alu": 1.5, "int": 1}, "shr16": {"alu": 2 / 7, "fused": 1},
+    "i32_mul": {"imad": 1, "int": 1}, "f32_add": {"fp32": 3},
     "f32_mul": {"fp32": 3}, "f32_fma": {"fp32": 3},
-    "wide": {"imad": 2, "alu": 2}, "layout": {"imad": 1, "alu": 1},
-    "empty": {},
+    "wide": {"imad": 2, "int": 1, "alu": 1},
+    "layout": {"imad": 1, "alu": 1}, "empty": {},
 }
 # the instruction each raw row measures (the mnemonics nvcc may use for
 # it), and how many of it one element-iteration issues
 RAW_SASS = {
     "u32_add": ("IADD3", ("IADD3", "VIADD"), 1),
     "u32_mul": ("IMAD", ("IMAD",), 1),
-    "mask16": ("LOP3", ("LOP3", "PRMT"), 2),
+    "mask16": ("LOP3", ("LOP3", "PRMT"), 1.5),
     "shr16": ("SHF", ("SHF", "LEA.HI"), 1),
     "i32_mul": ("IMAD", ("IMAD",), 1),
     "f32_add": ("FADD", ("FADD",), 3),
@@ -142,16 +168,17 @@ _I = ctypes.c_int
 
 def kernel_key(family: str, name: str, arg: int = 0) -> str:
     """The LAUNCHES key of a kernel: field_chain/<op>, raw_chain/<op>
-    @ILP, delta/<variant>@G, inv_chain/<variant>@G."""
-    if family in ("raw_chain", "inv_chain", "delta"):
+    @ILP, delta/<variant>@G, inv_chain/<variant>@G, inv_chip/<variant>
+    @G."""
+    if family in ("raw_chain", "inv_chain", "inv_chip", "delta"):
         return f"{family}/{name}@{arg}"
     return f"{family}/{name}"
 
 
 # the parts of probe_kernels.cu (its KT_PROBE_PART): the entry points
 # with P1's light chains and P2, P1's fe_inv, P1's step, P4 in two, P3's
-# walk variants in four
-BUILD_PARTS = 9
+# walk variants in four, P4's on-chip form in two
+BUILD_PARTS = 11
 
 
 def build() -> Path:
@@ -183,6 +210,9 @@ def load() -> ctypes.CDLL:
                 "kt_delta_launch": ([_I, _I] + [_P] * 7 + [_I] * 3
                                     + [_P] * 6, _I),
                 "kt_inv_chain_launch": ([_I, _I, _P, _I, _I, _P], _I),
+                "kt_inv_chip_launch": ([_I, _I, _P, _I, _I, _P], _I),
+                "kt_inv_chip_smem": ([_I, _I], _I),
+                "kt_inv_chip_run": ([], _I),
                 "kt_probe_attrs": ([_I, _I, _I, _I, _P], _I),
                 "kt_probe_error_string": ([_I], ctypes.c_char_p),
             }
@@ -322,17 +352,53 @@ def inv_chain(variant: str, x: torch.Tensor, iters: int,
     return x
 
 
+def inv_chip(variant: str, x: torch.Tensor, iters: int,
+             group: int) -> torch.Tensor:
+    """P4's on-chip form: what inv_chain computes at G = group (the same
+    lane sets), with each thread's G lanes and prefix products in shared
+    memory for the whole launch; n a multiple of THREADS * group, group
+    in CHIP_GROUPS."""
+    if not x.is_cuda:
+        return probe_ref.inv_chain(variant, x, iters, group)
+    if variant not in INV_VARIANTS or group not in CHIP_GROUPS:
+        raise ValueError(f"no on-chip inversion chain {variant!r} at "
+                         f"G = {group}")
+    n = x.shape[1]
+    if n % (THREADS * group):
+        raise ValueError(f"{n} lanes is not a multiple of {THREADS} x "
+                         f"{group}")
+    _need(x, "x", torch.int32, (16, n), x.device)
+    lib = load()
+    _raise(lib, lib.kt_inv_chip_launch(
+        INV_VARIANTS.index(variant), group, x.data_ptr(), n, iters,
+        _stream(x)), f"on-chip inversion chain {variant}")
+    LAUNCHES[kernel_key("inv_chip", variant, group)] += 1
+    return x
+
+
+def inv_chip_smem(variant: str, group: int) -> int:
+    """Shared memory per block of kt_inv_chip<variant, group>, bytes."""
+    smem = load().kt_inv_chip_smem(INV_VARIANTS.index(variant), group)
+    if smem < 0:
+        raise ValueError(f"no on-chip inversion chain {variant!r} at "
+                         f"G = {group}")
+    return smem
+
+
 # ---- attributes and bounds ----
 
 _FAMILIES = {"field_chain": (0, FIELD_OPS), "raw_chain": (1, RAW_OPS),
-             "delta": (2, DELTA_VARIANTS), "inv_chain": (3, INV_VARIANTS)}
+             "delta": (2, DELTA_VARIANTS), "inv_chain": (3, INV_VARIANTS),
+             "inv_chip": (4, INV_VARIANTS)}
 
 
 def attrs(family: str, name: str, arg: int = 0, smem: int = 0) -> dict:
     """Registers and local bytes per thread, static shared bytes per
     block and resident blocks per SM of a probe kernel (with `smem` bytes
-    of dynamic shared memory)."""
+    of dynamic shared memory; the on-chip P4 kernels with their own)."""
     fam, names = _FAMILIES[family]
+    if family == "inv_chip":
+        smem += inv_chip_smem(name, arg)
     out = (ctypes.c_int * 4)()
     lib = load()
     err = lib.kt_probe_attrs(fam, names.index(name), arg, smem, out)
@@ -344,9 +410,20 @@ def attrs(family: str, name: str, arg: int = 0, smem: int = 0) -> dict:
 def bound_ms(counts: Dict[str, float], work: float,
              nbytes: float) -> Tuple[float, str]:
     """Least time on an H100 SXM for `work` element-rounds issuing
-    `counts` slots of each class each (alu: integer adds and logic, on
-    the issue rate only), against `nbytes` of device memory traffic:
-    (ms, "operations" or "bytes")."""
+    `counts` slots of each class each (the slowest class at its peak, or
+    the issue rate over every class; "fused" at its best mix of one ALU
+    slot or two on either pipe), against `nbytes` of device memory
+    traffic: (ms, "operations" or "bytes")."""
+    counts = dict(counts)
+    fused = counts.pop("fused", 0)
+    alu, total = counts.get("alu", 0), sum(counts.values())
+    # y of the fused on the ALU pipe: where the ALU pipe's time, rising
+    # with y, meets the issue time, falling with it
+    y = min(fused, max(0.0, (PEAK["alu"] * (total + 2 * fused)
+                             - PEAK["issue"] * alu)
+                       / (PEAK["issue"] + PEAK["alu"])))
+    counts["alu"], counts["int"] = alu + y, (counts.get("int", 0)
+                                             + 2 * (fused - y))
     per = [n / PEAK[k] for k, n in counts.items() if n and k in PEAK]
     per.append(sum(counts.values()) / PEAK["issue"])
     ops_s = work * max(per)
@@ -382,13 +459,47 @@ def delta_imad_per_jump(variant: str, group: int) -> float:
     return (muls * jump_cuda.MUL_IMAD + sqrs * jump_cuda.SQR_IMAD + inv) / g
 
 
+# The chain's step, canon(y - x) | 1 (probes.cuh inv_chain_next): an
+# fe_sub, an fe_canon and the | 1 on 8 words (8 LOP3)
+STEP = {"alu": 8, "int": SUB_INT + CANON_INT}
+
+
 def inv_counts(variant: str, group: int) -> Dict[str, float]:
-    """Slots per lane and iteration of an inversion chain."""
-    alu = 2 * SUB_ALU + CANON_ALU if variant == "none" else SUB_ALU + CANON_ALU
+    """Slots per lane and iteration of an inversion chain whose groups
+    hold `group` lanes: the function's own need, and the walk layout's
+    count."""
+    out = dict(STEP)
     if variant == "none":
-        return {"alu": alu}
+        out["int"] += SUB_INT   # fn(x) = x - x
+        return out
     imad = 3 * (group - 1) * jump_cuda.MUL_IMAD
     if variant == "cur":
         imad += jump_cuda.INV_IMAD
-        alu += INV_ALU / group
-    return {"imad": imad / group, "alu": alu}
+        out["int"] += INV_ALU / group
+    out["imad"] = imad / group
+    return out
+
+
+def chip_smem_words(variant: str, run: int) -> float:
+    """Shared-memory words per lane and iteration of the on-chip form
+    whose runs hold `run` lanes (chip_run()): x loaded (8) and, for
+    run - 2 lanes of a run, the prefix product stored in the forward
+    pass; x loaded, for run - 1 lanes of a run the prefix loaded, and
+    the next x stored (8 + 8) in the unwind (none: x loaded and
+    stored)."""
+    if variant == "none":
+        return 16
+    return 24 + 8 * (2 * run - 3) / run
+
+
+def inv_chip_counts(variant: str, group: int, run: int) -> Dict[str, float]:
+    """Slots per lane and iteration of the on-chip form (this design's
+    count): the function's (inv_counts) and its shared-memory words."""
+    return dict(inv_counts(variant, group),
+                lds=chip_smem_words(variant, run))
+
+
+def chip_run() -> int:
+    """Lanes of a run of kt_inv_chip (probes.cuh CHIP_RUN), read from
+    the library."""
+    return load().kt_inv_chip_run()

@@ -12,7 +12,9 @@ kernels for CUDA tensors).
                32-bit instruction per element and iteration;
   delta_walk   P3 (scripts/pkdelta.py): the walk with one component
                switched;
-  inv_chain    P4 (scripts/pkinv.py): x <- canon(fn(x) - x) | 1.
+  inv_chain    P4 (scripts/pkinv.py): x <- canon(fn(x) - x) | 1, for
+               both of its kernels (the walk's layout and the on-chip
+               form group lanes alike: `lane_sets`).
 
 The names below are the kernels' op and variant ids, in order.  The
 gather's xor, the step's x3 ^ y3 and P4's | 1 read canonical values, as
@@ -192,19 +194,29 @@ def delta_walk(variant: str, px, py, d, jx, jy, jd, dp_masks, nb_run: int,
     return px, py, d, count, dpx, dpd, step
 
 
-def _group_products(x: torch.Tensor, group: int, invert: bool):
+def lane_sets(n: int, group: int) -> torch.Tensor:
+    """The lane sets that the P4 kernels invert together on n lanes, one
+    row per kernel thread: thread t of block b owns lanes
+    b*THREADS*group + g*THREADS + t, g < group ((n / group, group)
+    int64)."""
+    if n % (THREADS * group):
+        raise ValueError(f"{n} lanes is not a multiple of {THREADS} x "
+                         f"{group}")
+    lanes = torch.arange(n).reshape(n // (THREADS * group), group, THREADS)
+    return lanes.permute(0, 2, 1).reshape(-1, group)
+
+
+def _group_products(x: torch.Tensor, sets: torch.Tensor, invert: bool):
     """Per lane: the inverse of x (invert) or, without the inversion, the
-    product of the lane's group times the product of the others in it
-    (R^2 / x).  A group is the G lanes one kernel thread owns: lanes
-    b*THREADS*G + g*THREADS + t, g < G.  The fold tree of
-    kangaroo_tpu's batch_inv over the lanes permuted so that each
-    group's G lanes fold together."""
-    rows, n = x.shape
-    blocks = n // (THREADS * group)
-    perm = x.reshape(rows, blocks, group, THREADS).permute(0, 2, 1, 3)
-    cur = perm.reshape(rows, n)
+    product of the lane's set times the product of the others in it
+    (R^2 / x).  `sets` (m, G) holds each lane once, G a power of two.
+    The fold tree of kangaroo_tpu's batch_inv over the lanes permuted so
+    that each set's lanes fold together."""
+    m = sets.shape[0]
+    order = sets.t().reshape(-1).to(x.device)  # column j*m + i: sets[i, j]
+    cur = x[:, order]
     levels = []
-    while cur.shape[1] > blocks * THREADS:
+    while cur.shape[1] > m:
         half = cur.shape[1] // 2
         levels.append(cur)
         cur = field.mulmod(cur[:, :half], cur[:, half:])
@@ -213,25 +225,32 @@ def _group_products(x: torch.Tensor, group: int, invert: bool):
         half = lev.shape[1] // 2
         root = torch.cat([field.mulmod(root, lev[:, half:]),
                           field.mulmod(root, lev[:, :half])], 1)
-    out = root.reshape(rows, group, blocks, THREADS).permute(0, 2, 1, 3)
-    return out.reshape(rows, n)
+    out = torch.empty_like(x)
+    out[:, order] = root
+    return out
 
 
 def inv_chain(variant: str, x: torch.Tensor, iters: int,
-              group: int = 64) -> torch.Tensor:
+              group: int = 64, sets=None) -> torch.Tensor:
     """P4: `iters` rounds of x <- canon(fn(x) - x) | 1 on (16, N) limbs
     (the | 1 on every limb, as pkinv's), fn the batch inversion over
-    groups of `group` lanes (cur), the same without its inversion
-    (nodiv), or x - x (none)."""
+    sets of lanes (cur), the same without its inversion (nodiv), or
+    x - x (none).  The sets are the kernels' for G = `group`
+    (lane_sets), or `sets` ((m, G) lane indices, each lane once, G a
+    power of two)."""
     if variant not in INV_VARIANTS:
         raise ValueError(f"unknown inversion variant {variant!r}")
-    if x.shape[1] % (THREADS * group):
-        raise ValueError(f"{x.shape[1]} lanes is not a multiple of "
-                         f"{THREADS} x {group}")
+    n = x.shape[1]
+    sets = (lane_sets(n, group) if sets is None
+            else torch.as_tensor(sets, dtype=torch.int64).cpu())
+    if not torch.equal(sets.reshape(-1).sort().values, torch.arange(n)):
+        raise ValueError(f"the lane sets do not hold each of {n} lanes once")
+    if sets.shape[1] & (sets.shape[1] - 1):
+        raise ValueError(f"sets of {sets.shape[1]} lanes: not a power of two")
     for _ in range(iters):
         if variant == "none":
             y = field.submod(x, x)
         else:
-            y = _group_products(x, group, variant == "cur")
+            y = _group_products(x, sets, variant == "cur")
         x = field.canonicalize(field.submod(y, x)) | 1
     return x

@@ -86,6 +86,25 @@ def sass_counts() -> dict:
     return {k: sass.opcode_counts(v) for k, v in funcs.items()}
 
 
+# the instructions that only the ALU pipe issues (probe_cuda's "alu"
+# class; IADD3 with its carry forms, LEA with LEA.HI)
+ALU_SASS = ("IADD3", "LOP3", "SHF", "LEA")
+
+
+def loop_trips() -> dict:
+    """Mangled kernel name -> instruction counts of one trip of its
+    longest loop (empty for a kernel without a loop)."""
+    funcs = sass.sass_functions(probe_cuda.build())
+    return {k: sass.opcode_counts(max(sass.loop_bodies(v), key=len,
+                                      default=[]))
+            for k, v in funcs.items()}
+
+
+def alu_count(counts: dict) -> int:
+    """The ALU-pipe instructions (ALU_SASS) among SASS counts."""
+    return sum(sass.count_class(counts, m) for m in ALU_SASS)
+
+
 def kernel_sass(counts: dict, tag: str) -> dict:
     """The counts of the kernel whose mangled name holds `tag`, e.g.
     kt_raw_chainILi0ELi4EE for kt_raw_chain<0, 4>."""

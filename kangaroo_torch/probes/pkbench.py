@@ -20,8 +20,8 @@ registers than the walk and run several times as many warps.  The
 default lane count is the walk's herd, so that the rows whose thread
 owns G lanes run the walk's threads.  For the add-class carry chains
 (fe_sub, fe_add, fe_fold) it counts the SASS instructions of a round
-(one trip of the chain loop holds CHAIN_UNROLL rounds) beside the issue
-slots their bound counts.
+(one trip of the chain loop holds CHAIN_UNROLL rounds), all and those
+of the ALU pipe, beside the slots their bound counts.
 """
 
 from __future__ import annotations
@@ -71,8 +71,9 @@ def chain_sass() -> dict:
     """Per add-class op, the SASS of one trip of its chain loop in
     kt_field_chain<op> (the longest loop: CHAIN_UNROLL rounds, with the
     loop's counter, compare and branch): its instruction count, per
-    round, its opcodes, every loop's length, and the bound's issue slots
-    per round (probe_cuda.FIELD_COUNTS)."""
+    round, those of the ALU pipe per round (the design's reading), its
+    opcodes, every loop's length, and the bound's slots per round
+    (probe_cuda.FIELD_COUNTS)."""
     funcs = sass.sass_functions(probe_cuda.build())
     out = {}
     for op in CHAIN_OPS:
@@ -82,10 +83,13 @@ def chain_sass() -> dict:
         if not loops:
             raise RuntimeError(f"{tag}: no loop in its SASS")
         trip = max(loops, key=len)
+        ops = sass.opcode_counts(trip)
+        alu = common.alu_count(ops)
         out[op] = {"trip": len(trip), "rounds": CHAIN_UNROLL,
                    "per_round": len(trip) / CHAIN_UNROLL,
+                   "alu_per_round": alu / CHAIN_UNROLL,
                    "loops": [len(b) for b in loops],
-                   "opcodes": dict(sass.opcode_counts(trip)),
+                   "opcodes": dict(ops),
                    "bound_slots": sum(probe_cuda.FIELD_COUNTS[op].values())}
     return out
 
@@ -125,7 +129,10 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
         rows.append(_row(LABELS[op], probe_cuda.kernel_key("field_chain", op),
                          ms, r, n, bound))
         if op in chains:
+            # this design's floor: its ALU-pipe instructions at that pipe
             rows[-1]["sass"] = chains[op]
+            rows[-1]["design_bound_ms"] = probe_cuda.bound_ms(
+                {"alu": chains[op]["alu_per_round"]}, n * r, 0)[0]
     # the multiply and the squaring at 2 blocks of 128 threads per SM,
     # where the chains alone would run several times as many warps
     for op in ("mul", "sqr"):
@@ -178,8 +185,10 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
             print(f"{row['label']:26s} {row['us_per_op']:9.2f} us/op   "
                   f"({row['mlane_ops']:10.1f} Mlane-ops/s)   bound "
                   f"{row['bound_ms'] * 1e3 / row['rounds']:8.2f} us/op "
-                  f"({row['bound_by']}); {row['ms']:.3f} ms/launch",
-                  flush=True)
+                  f"({row['bound_by']}); {row['ms']:.3f} ms/launch"
+                  + (f", this design's ALU-pipe floor "
+                     f"{row['design_bound_ms']:.3f} ms"
+                     if "design_bound_ms" in row else ""), flush=True)
         for op in FIELD_OPS:
             c = common.kernel_sass(
                 counts, f"kt_field_chainILi{FIELD_OPS.index(op)}EE")
@@ -194,7 +203,9 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
                   f"a trip of {c['rounds']} rounds = {c['per_round']:.2f} "
                   f"per round (loop counter, compare and branch "
                   f"included; loops {c['loops']}) against the bound's "
-                  f"{c['bound_slots']} slots; opcodes of the trip "
+                  f"{c['bound_slots']} slots; of the ALU pipe "
+                  f"{c['alu_per_round']:.2f} per round (the design's "
+                  f"floor at that pipe); opcodes of the trip "
                   f"{c['opcodes']}", flush=True)
     return rows
 

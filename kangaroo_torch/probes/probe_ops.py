@@ -11,8 +11,10 @@ built from (IMAD.WIDE.U32), split into its halves.
 
 Each row prints the rate in the TPU script's op count, the rate of the
 instruction it names beside the card's derived peak for that
-instruction's pipe, and that instruction's static count in the kernel's
-SASS; a kernel whose SASS lacks its instruction is a fault.
+instruction's pipe, that instruction's static count in the kernel's
+SASS (a kernel whose SASS lacks it is a fault), and the instructions of
+one trip of its loop, from which its bound's counts are read
+(probe_cuda.RAW_COUNTS).
 """
 
 from __future__ import annotations
@@ -34,8 +36,9 @@ TPU_OPS = {"u32_add": 2, "u32_mul": 2, "mask16": 2, "shr16": 2,
            "i32_mul": 2, "f32_add": 2, "f32_mul": 2, "f32_fma": 3,
            "wide": 5}
 # the peak each row's named instruction is read against: the multiply
-# pipe, the fp32 pipe, or for integer adds and logic the issue rate
-PIPE = {"IADD3": "issue", "IMAD": "imad", "LOP3": "issue", "SHF": "issue",
+# pipe, the fp32 pipe, or the ALU pipe (IADD3, LOP3 and SHF issue there
+# only)
+PIPE = {"IADD3": "alu", "IMAD": "imad", "LOP3": "alu", "SHF": "alu",
         "FADD": "fp32", "FMUL": "fp32", "FFMA": "fp32",
         "IMAD.WIDE.U32": "imad"}
 
@@ -58,7 +61,7 @@ def count_insn(counts: dict, op: str, ilp: int) -> int:
         probe_cuda.RAW_SASS[op][1])
 
 
-def _row(op: str, x, counts: dict) -> dict:
+def _row(op: str, x, counts: dict, trips: dict) -> dict:
     ms = common.time_ms(lambda: probe_cuda.raw_chain(op, x, INNER, ILP))
     work = ELEMS * INNER
     insn, _, per_iter = probe_cuda.RAW_SASS[op]
@@ -69,6 +72,9 @@ def _row(op: str, x, counts: dict) -> dict:
             "insn": insn, "rate": work * per_iter / ms * 1e3,
             "peak": probe_cuda.PEAK[PIPE[insn]],
             "sass_count": count_insn(counts, op, ILP),
+            "trip": dict(common.kernel_sass(
+                trips, f"kt_raw_chainILi{probe_cuda.RAW_OPS.index(op)}"
+                f"ELi{ILP}EE")),
             "blocks_per_sm": probe_cuda.attrs("raw_chain", op,
                                               ILP)["blocks_per_sm"],
             "bound_ms": bound[0], "bound_by": bound[1]}
@@ -78,10 +84,11 @@ def run(verbose: bool = True):
     """Time every row; returns the rows (rates in instructions/s)."""
     dev = common.require_card()
     counts = common.sass_counts()
+    trips = common.loop_trips()
     rows = []
     with common.ClockSampler() as clk:
         for op in OPS:
-            rows.append(_row(op, inputs(op, ELEMS, dev), counts))
+            rows.append(_row(op, inputs(op, ELEMS, dev), counts, trips))
     if verbose:
         print(f"elements: {ELEMS}, ILP {ILP}, iterations: {INNER}; "
               f"{clk.summary()}", flush=True)
@@ -90,8 +97,10 @@ def run(verbose: bool = True):
                   f"ms); {r['insn']} {r['rate'] / 1e12:.3f}e12/s "
                   f"({100 * r['rate'] / r['peak']:.1f} % of the derived "
                   f"{r['peak'] / 1e12:.3f}e12/s), {r['sass_count']} in "
-                  f"SASS; bound {r['bound_ms']:.2f} ms ({r['bound_by']}); "
-                  f"{r['blocks_per_sm']} blocks/SM", flush=True)
+                  f"SASS; bound {r['bound_ms']:.2f} ms ({r['bound_by']}) of "
+                  f"{probe_cuda.RAW_COUNTS[r['op']]} an element-iteration; "
+                  f"{r['blocks_per_sm']} blocks/SM; a trip of its loop "
+                  f"{r['trip']}", flush=True)
         by = {r["op"]: r for r in rows}
         print(f"measured: IMAD {by['u32_mul']['rate']:.4g}/s, IMAD.WIDE.U32 "
               f"{by['wide']['rate']:.4g}/s, IADD3 "

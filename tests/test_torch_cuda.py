@@ -216,6 +216,33 @@ def test_inv_chain_matches_plain_on_card(card, variant, group):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant,group", [
+    (v, g) for v in probe_ref.INV_VARIANTS for g in probe_cuda.CHIP_GROUPS])
+def test_inv_chip_matches_plain_on_card(card, variant, group):
+    """P4's on-chip form on 8192 lanes (2 to 8 blocks) x 2 iterations:
+    bit-equal to the plain chain over its lane sets; its cur also to the
+    walk layout's cur (G 64), its nodiv at G 32 to the walk layout's
+    nodiv32 (the same lane sets); no local memory; one launch counted."""
+    rs = np.random.RandomState(5)
+    n = 8192
+    x = _limbs(rs, 16, n, card) | 1
+    key = probe_cuda.kernel_key("inv_chip", variant, group)
+    launches = probe_cuda.LAUNCHES[key]
+    got = probe_cuda.inv_chip(variant, x.clone(), 2, group)
+    want = probe_ref.inv_chain(variant, x, 2,
+                               sets=probe_ref.lane_sets(n, group))
+    torch.cuda.synchronize()
+    assert probe_cuda.LAUNCHES[key] == launches + 1
+    assert torch.equal(got, want)
+    walk_g = {"cur": 64, "nodiv": 32 if group == 32 else None,
+              "none": 64}[variant]
+    if walk_g:
+        walk = probe_cuda.inv_chain(variant, x.clone(), 2, walk_g)
+        assert torch.equal(got, walk)
+    assert probe_cuda.attrs("inv_chip", variant, group)["local_bytes"] == 0
+
+
+@pytest.mark.cuda
 def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
     z = torch.zeros((16, 200), dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="multiple"):
@@ -227,6 +254,8 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
         probe_cuda.raw_chain("u32_add", z[0].contiguous(), 1, ilp=3)
     with pytest.raises(ValueError, match="G = 100"):
         probe_cuda.inv_chain("cur", z, 1, group=100)
+    with pytest.raises(ValueError, match="G = 64"):
+        probe_cuda.inv_chip("cur", z, 1, group=64)
 
 
 @pytest.mark.cuda
