@@ -70,11 +70,15 @@ Phases:
      layout's kernel on the same lanes where the function is the same
      (cur, none; nodiv at G 32), P1's add-class chains (fe_sub,
      fe_add, fe_fold) also on 2^16 lanes of operands whose words are 0,
-     1, 2^32 - 2 and 2^32 - 1 (every lane, 1 and 256 rounds), then the
-     five probe entry points at their default shapes, launch counts
-     read around them, and the SASS instructions per round of those
-     three chains (all, and those of the ALU pipe) beside the slots
-     their bound counts;
+     1, 2^32 - 2 and 2^32 - 1 (every lane, 1 and 256 rounds), the P2
+     chains after 256 and 293 iterations (whole unrolled trips, and
+     trips and the loop after them), then the five probe entry points
+     at their default shapes, launch counts read around them, and the
+     SASS instructions per round of those three chains (all, and those
+     of the ALU pipe) beside the slots their bound counts; each P2 row's
+     share of its bound (of its latency floor for narrow1 and empty)
+     and the highest IMAD rate of a P2 row against IMAD_PEAK, at
+     the SM clock sampled while it ran;
   8. check: -check (run_self_check) on the card, launch counts read
      around it;
   9. network: the CLI's DP server (-s -d 14 -sp 0, in64) in a process
@@ -186,6 +190,10 @@ SYM_WINDOWS = ((6, 2, 128, True), (DP_FULL, SLOTS_FULL, 128, False))
 CMP_LANES_PER_BLOCK = 4
 CMP_INV_ROUNDS = 1
 CMP_INNER = 256
+# iterations of the P2 comparisons: whole trips of every unroll (probes.cuh
+# RAW_TRIP / ILP iterations a trip), and whole trips and 37 more, so that
+# the loop after the trips runs on the card too
+CMP_RAW_INNER = (CMP_INNER, CMP_INNER + 37)
 # lanes of the add-class chains' run-word comparison (phase 7)
 CMP_RUN_LANES = 1 << 16
 # phase 11: keys of fixtures/in40_1000.txt per STATS batch, and the
@@ -1156,6 +1164,7 @@ def phase_probe_compare(dev):
     one_lane = torch.from_numpy(_lane_sample(n // thr, thr, 1, rs)).to(dev)
     steps_idx = torch.from_numpy(
         _group_sample(n // (thr * grp), grp, rs)).to(dev)
+    walk_blocks = common.walk_blocks()
     for op in probe_ref.FIELD_OPS:
         tabs = pkbench.tables(op, tbl, jx, jy)
         rounds = CMP_INV_ROUNDS if op == "inv" else pkbench.ROUNDS[op]
@@ -1166,8 +1175,8 @@ def phase_probe_compare(dev):
                    + f", x {rounds} rounds")
         p, p_ms = cuda_ms(lambda: probe_ref.field_chain(
             op, a[:, idx], b[:, idx], rounds, *tabs))
-        for smem in ((0, common.OCC2_SMEM) if op in ("mul", "sqr")
-                     else (0,)):
+        for smem in ((0, common.hold_to("field_chain", op, 0, walk_blocks))
+                     if op in ("mul", "sqr") else (0,)):
             k = probe_cuda.field_chain(op, a.clone(), b, rounds, *tabs,
                                        smem=smem)
             record(probe_cuda.kernel_key("field_chain", op), k[:, idx], p,
@@ -1201,19 +1210,24 @@ def phase_probe_compare(dev):
 
     def raw(op, x, ilp, smem=0):
         f32 = op in probe_ref.F32_OPS
-        p, p_ms = cuda_ms(lambda: probe_ref.raw_chain(op, x, CMP_INNER))
-        k = probe_cuda.raw_chain(op, x.clone(), CMP_INNER, ilp, smem)
-        shape = (f"{x.numel()} elements x {CMP_INNER} iterations, ILP {ilp}"
-                 + (f", {smem} B dynamic shared memory" if smem else ""))
-        record(probe_cuda.kernel_key("raw_chain", op, ilp), k, p, p_ms,
-               shape, f"{x.numel()} elements x {CMP_INNER} iterations",
-               rtol=1e-5 if f32 else 0.0)
+        for inner in CMP_RAW_INNER:
+            p, p_ms = cuda_ms(lambda: probe_ref.raw_chain(op, x, inner))
+            k = probe_cuda.raw_chain(op, x.clone(), inner, ilp, smem)
+            shape = (f"{x.numel()} elements x {inner} iterations, ILP {ilp}"
+                     + (f", {smem} B dynamic shared memory" if smem else ""))
+            record(probe_cuda.kernel_key("raw_chain", op, ilp), k, p, p_ms,
+                   shape, f"{x.numel()} elements x {inner} iterations",
+                   rtol=1e-5 if f32 else 0.0)
 
     for op in probe_ops.OPS:
         raw(op, probe_ops.inputs(op, probe_ops.ELEMS, dev), probe_ops.ILP)
     a = layout_probe.inputs(layout_probe.W, dev)
-    for v, (ilp, frac, op) in layout_probe.VARIANTS.items():
-        raw(op, a[:a.numel() // frac].clone(), ilp, layout_probe.smem_of(v))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for v, (ilp, _, op) in layout_probe.VARIANTS.items():
+        smem = (common.hold_to("raw_chain", op, ilp, walk_blocks)
+                if v == "wide_walk" else 0)
+        raw(op, a[:layout_probe.elements(v, layout_probe.W, sms)].clone(),
+            ilp, smem)
     del a
     t2 = time.time()
 
@@ -1333,6 +1347,16 @@ def phase_probes():
               f"{r['design_bound_ms']:.3f} ms against the bound's "
               f"{r['bound_ms']:.3f})" for r in rows["pkbench"]
               if "sass" in r), flush=True)
+    p2 = rows["probe_ops"] + rows["layout_probe"]
+    top = max(p2, key=lambda r: r.get("imad_rate", 0.0))
+    print(f"[7 probes] P2 shares of their bounds: "
+          + ", ".join(f"{r.get('op') or r['variant']} "
+                      f"{100 * r['share']:.1f} %" for r in p2)
+          + f"; highest IMAD rate {top['imad_rate']:.4g}/s ("
+          f"{top.get('op') or top['variant']}), "
+          f"{100 * top['imad_rate'] / jump_cuda.IMAD_PEAK:.1f} % of the "
+          f"derived IMAD_PEAK {jump_cuda.IMAD_PEAK:.4g}/s; "
+          f"{top['clock']}", flush=True)
     if idle:
         raise SystemExit(f"probe kernels not launched by their entry "
                          f"points: {idle}")
@@ -1400,6 +1424,15 @@ def _probe_entries(rows, counts, cmp):
                 out[-1].update({k: r[k] for k in (
                     "ns_per_lane", "regs", "local_bytes", "smem",
                     "blocks_per_sm")})
+            if mod in ("probe_ops", "layout_probe"):
+                # P2: the SASS opcodes of one trip of its loop, its share of
+                # its bound (the latency floor's where it has one), the SM
+                # clock sampled while the module ran
+                out[-1].update({k: r[k] for k in (
+                    "trip", "share", "clock", "blocks_per_sm")
+                    if k in r})
+                if r.get("floor_ms") is not None:
+                    out[-1]["latency_floor_ms"] = r["floor_ms"]
     return out
 
 

@@ -33,6 +33,20 @@ void kt_fe_inv_n(uint32_t* r, const uint32_t* a, int n) {
     for (int i = 0; i < n; ++i) kt::fe_inv(r + 8 * i, a + 8 * i);
 }
 
+// r[i] <- hi32(a[i] * b[i]) + c[i]: probes.cuh's mulhi_add (the host
+// twin of the card's mad.hi.u32)
+void kt_mulhi_add_n(uint32_t* r, const uint32_t* a, const uint32_t* b,
+                    const uint32_t* c, int n) {
+    for (int i = 0; i < n; ++i) r[i] = kt::mulhi_add(a[i], b[i], c[i]);
+}
+
+// r[i] <- a[i] ^ b[i] ^ c[i]: probes.cuh's xor3 (the host twin of the
+// card's lop3.b32)
+void kt_xor3_n(uint32_t* r, const uint32_t* a, const uint32_t* b,
+               const uint32_t* c, int n) {
+    for (int i = 0; i < n; ++i) r[i] = kt::xor3(a[i], b[i], c[i]);
+}
+
 // r[i] <- fe_fold(r[i], k[i]) in place, k[i] < 2^34
 void kt_fe_fold_n(uint32_t* r, const uint64_t* k, int n) {
     for (int i = 0; i < n; ++i) kt::fe_fold(r + 8 * i, k[i]);
@@ -120,7 +134,8 @@ struct RawHost {
     int run() {
         auto* v = static_cast<typename kt::RawType<OP>::type*>(x);
         for (size_t tid = 0; tid < nthreads; ++tid)
-            kt::raw_chain_thread<OP, ILP>(v, tid, nthreads, inner);
+            kt::raw_chain_thread<OP, ILP>(v, tid, nthreads, inner,
+                                          kt::SHR_MUL);
         return 0;
     }
 };

@@ -15,8 +15,15 @@
 //                          are a chain of one 32-bit instruction per
 //                          element and iteration with ILP independent
 //                          chains per thread; they differ only in ILP
-//                          and thread count.  Dynamic shared memory
-//                          pads a launch down to a chosen occupancy.
+//                          and thread count.  Each trip of the loop
+//                          unrolls 128 element-iterations of a thread
+//                          (probes.cuh RAW_TRIP): the counter, compare
+//                          and branch once a trip; the layout chain's
+//                          index i + 1 folded into its LOP3; shr16's
+//                          shift-and-add one LEA.HI (its IMAD.HI
+//                          forms are contrasts).  Dynamic shared
+//                          memory pads a launch down to a chosen
+//                          occupancy.
 //   kt_delta_kernel<V, G>  replaces scripts/pkdelta.py:213 run_variant:
 //                          the production walk body (walk.cuh) with one
 //                          component switched by V, at the walk
@@ -71,7 +78,7 @@
 
 using FieldFn = void (*)(int32_t*, const int32_t*, size_t, int,
                          const int32_t*, const int32_t*);
-using RawFn = void (*)(void*, size_t, int);
+using RawFn = void (*)(void*, size_t, int, uint32_t);
 using DeltaFn = void (*)(kt::WalkArgs, const int32_t*, const int32_t*,
                          const int32_t*);
 using InvFn = void (*)(int32_t*, size_t, int);
@@ -227,12 +234,12 @@ namespace {
 
 template <int OP, int ILP>
 __global__ void __launch_bounds__(kt::THREADS)
-kt_raw_chain(void* x, size_t nthreads, int inner) {
+kt_raw_chain(void* x, size_t nthreads, int inner, uint32_t mul) {
     const size_t tid = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
     if (tid < nthreads)
         kt::raw_chain_thread<OP, ILP>(
             static_cast<typename kt::RawType<OP>::type*>(x), tid, nthreads,
-            inner);
+            inner, mul);
 }
 
 struct RawPick {
@@ -392,8 +399,14 @@ int kt_field_chain_launch(int op, void* x, const void* b, const void* jx,
 }
 
 // P2: `inner` iterations of op on n_elems elements of x in place (u32
-// bits or f32), ILP chains per thread; smem bytes of dynamic shared
-// memory per block pad the launch down to a chosen occupancy.
+// bits or f32), ILP chains per thread, blocks of THREADS threads (for
+// narrow1's 2^16 threads 512 blocks: 3 or 4 an SM, each block's warps
+// one a scheduler, 4 warps on the busiest of the 528 schedulers, as
+// ceil(2048 / 528) allows); smem bytes of dynamic shared memory per
+// block pad the launch down to a chosen occupancy.  The shr16 rows'
+// multiplier 2^16 goes as an argument, so that ptxas keeps the IMAD.HI
+// of the chains meant for the multiply-add pipe (probes.cuh
+// mulhi_add).
 int kt_raw_chain_launch(int op, int ilp, void* x, int n_elems, int inner,
                         int smem, void* stream) {
     const RawFn fn = kt_raw_kernel(op, ilp);
@@ -404,7 +417,8 @@ int kt_raw_chain_launch(int op, int ilp, void* x, int n_elems, int inner,
     const size_t threads = (size_t)n_elems / ilp;
     const size_t blocks = (threads + kt::THREADS - 1) / kt::THREADS;
     fn<<<(unsigned)blocks, kt::THREADS, (size_t)smem,
-         static_cast<cudaStream_t>(stream)>>>(x, threads, inner);
+         static_cast<cudaStream_t>(stream)>>>(x, threads, inner,
+                                              kt::SHR_MUL);
     return (int)cudaGetLastError();
 }
 

@@ -7,7 +7,8 @@
 //      DP or distance over a thread's GROUP lanes with its grouped
 //      inversion (the walk's geometry).
 //   P2 raw chains: one 32-bit instruction per element and iteration,
-//      ILP independent chains per thread, the loop index mixed in.
+//      ILP independent chains per thread, the loop index mixed in;
+//      trips of RAW_TRIP element-iterations unrolled.
 //   P3 is walk_thread itself with a variant type (walk.cuh), and base
 //      also at G = 32 and 128; the variants are defined here.
 //   P4 inversion chains: the walk's per-thread Montgomery inversion
@@ -168,7 +169,7 @@ int with_field_op(int op, F&& f) {
 
 enum RawOp {
     R_U32ADD, R_U32MUL, R_MASK16, R_SHR16, R_I32MUL, R_F32ADD, R_F32MUL,
-    R_F32FMA, R_WIDE, R_LAYOUT, R_EMPTY, R_NOPS
+    R_F32FMA, R_WIDE, R_LAYOUT, R_EMPTY, R_SHR16_MIX, R_SHR16_HI, R_NOPS
 };
 
 template <int OP>
@@ -188,16 +189,99 @@ struct RawType<R_F32FMA> {
     using type = float;
 };
 
-// One iteration i of chain (a, b).  The probe_ops rows (as
-// scripts/probe_ops.py): a <- op(a, b) + mix(i), then b <- a ^ b (u32),
-// a + 1 (i32, f32).  R_WIDE is the 32x32->64 multiply-add field.cuh is
-// built from, split into its halves.  The layout rows (as
+#if defined(__CUDA_ARCH__)
+#define KT_UNROLL _Pragma("unroll")
+#define KT_NO_UNROLL _Pragma("unroll 1")
+#else
+#define KT_UNROLL
+#define KT_NO_UNROLL
+#endif
+
+// hi32(a * b) + c: on the card one PTX mad.hi.u32.  ptxas issues it as
+// IMAD.HI.U32 (two slots of the multiply-add pipe: half that pipe's
+// IMAD rate, probes/probe_ops.py's shr16_hi) where b is a register it
+// cannot read as a constant, and turns b = 2^16 into a shift-and-add
+// (LEA.HI, one ALU-pipe slot at that pipe's rate).  On the host its
+// twin: the same word.
+KT_HD uint32_t mulhi_add(uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+    uint32_t d;
+    asm("mad.hi.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+#else
+    return (uint32_t)(((uint64_t)a * b) >> 32) + c;
+#endif
+}
+
+// a ^ b ^ c: on the card one PTX lop3.b32 (LOP3.LUT 0x96), so that the
+// layout chain's xor with its index, base ^ (j + 1), stays one LOP3
+// with base in a register and j + 1 an immediate (written as two xors,
+// nvcc may compute the index once for a thread's chains with an add of
+// its own); on the host its twin.
+KT_HD uint32_t xor3(uint32_t a, uint32_t b, uint32_t c) {
+#if defined(__CUDA_ARCH__)
+    uint32_t d;
+    asm("lop3.b32 %0, %1, %2, %3, 0x96;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+#else
+    return a ^ b ^ c;
+#endif
+}
+
+// The multiplier of shr16's shift-and-add: mulhi_add(a, SHR_MUL, u) is
+// (a >> 16) + u.  A launch passes it as an argument too, so that the
+// chains meant for the multiply-add pipe keep their IMAD.HI.
+constexpr uint32_t SHR_MUL = 1u << 16;
+
+// Chains of a shr16 thread (ILP) whose shift-and-add runs on the
+// multiply-add pipe (IMAD.HI, from the launch's multiplier); the others
+// take the constant and run on the ALU pipe (LEA.HI).  shr16 is all
+// LEA.HI: its LOP3s and LEA.HIs fill the ALU pipe, and the split that
+// bound_ms assumes does not pay, since IMAD.HI takes two slots of the
+// multiply-add pipe and ptxas gives each IMAD.HI its own copy of the
+// uniform index there (IMAD.U32): shr16_mix (SHR16_MIX_CHAINS of the
+// chains on IMAD.HI, the best split measured) and shr16_hi (all) show
+// it.
+constexpr int SHR16_MIX_CHAINS = 1;
+template <int OP, int ILP>
+constexpr int raw_hi_chains() {
+    return OP == R_SHR16_HI ? ILP : OP == R_SHR16_MIX ? SHR16_MIX_CHAINS : 0;
+}
+
+// Element-iterations of a thread in one trip of a raw chain's loop: the
+// trip unrolls RAW_TRIP / ILP iterations (the empty loop RAW_TRIP, as
+// narrow1), so that the loop's counter, compare and branch, and the
+// latency of its branch, are paid once a trip.
+constexpr int RAW_TRIP = 128;
+
+// The index term of iteration i = base + j of a trip of U iterations,
+// base a multiple of U, as a pair (t, c) whose xor it is: i for the
+// probe_ops rows, i + 1 for the layout chain.  There i + 1 = base ^
+// (j + 1), base's low bits being 0, but at the trip's last iteration,
+// where it is base + U, the next trip's base (the loop counter): the
+// chain's three-input LOP3 (xor3) takes j + 1 as an immediate, and no
+// instruction computes the index.
+template <int OP, int U>
+KT_HD void raw_index(uint32_t base, int j, uint32_t& t, uint32_t& c) {
+    if constexpr (OP == R_LAYOUT) {
+        t = j + 1 < U ? base : base + (uint32_t)U;
+        c = j + 1 < U ? (uint32_t)(j + 1) : 0u;
+    } else {
+        t = base + (uint32_t)j;
+        c = 0u;
+    }
+}
+
+// One iteration of chain (a, b) with index term u ^ c (raw_index; c is
+// 0 but in the layout chain's trips) and, for the shr16 rows, the
+// multiplier mul of mulhi_add.  The probe_ops rows
+// (as scripts/probe_ops.py): a <- op(a, b) + mix(i), then b <- a ^ b
+// (u32), a + 1 (i32, f32).  R_WIDE is the 32x32->64 multiply-add
+// field.cuh is built from, split into its halves.  The layout rows (as
 // scripts/layout_probe.py): x <- x * (x ^ (i + 1)) + 1, and the loop
-// alone, x <- x + 1 (which the compilers sum in closed form: the launch
-// and memory floor).
+// alone, x <- x + 1 (the compilers add a trip's ones at once).
 template <int OP, class T>
-KT_HD void raw_iter(T& a, T& b, int i) {
-    const uint32_t u = (uint32_t)i;
+KT_HD void raw_iter(T& a, T& b, uint32_t u, uint32_t c, uint32_t mul) {
     if constexpr (OP == R_U32ADD) {
         a = (a + b) + u;
         b = a ^ b;
@@ -207,8 +291,9 @@ KT_HD void raw_iter(T& a, T& b, int i) {
     } else if constexpr (OP == R_MASK16) {
         a = (a & 0xFFFFu) + u;
         b = a ^ b;
-    } else if constexpr (OP == R_SHR16) {
-        a = (a >> 16) + u;
+    } else if constexpr (OP == R_SHR16 || OP == R_SHR16_MIX ||
+                         OP == R_SHR16_HI) {
+        a = mulhi_add(a, mul, u);  // (a >> 16) + u
         b = a ^ b;
     } else if constexpr (OP == R_I32MUL) {
         a = a * b + u;  // the int32 product's bits, without signed overflow
@@ -218,11 +303,11 @@ KT_HD void raw_iter(T& a, T& b, int i) {
         a = (uint32_t)w + (uint32_t)(w >> 32);
         b = a ^ b;
     } else if constexpr (OP == R_LAYOUT) {
-        a = a * (a ^ (u + 1u)) + 1u;
+        a = a * xor3(a, u, c) + 1u;
     } else if constexpr (OP == R_EMPTY) {
         a = a + 1u;
     } else {
-        const float m = KT_FADD(1.0f, KT_FMUL((float)i, 1e-9f));
+        const float m = KT_FADD(1.0f, KT_FMUL((float)(int)u, 1e-9f));
         if constexpr (OP == R_F32ADD)
             a = KT_FADD(KT_FADD(a, b), m);
         else if constexpr (OP == R_F32MUL)
@@ -234,16 +319,40 @@ KT_HD void raw_iter(T& a, T& b, int i) {
 }
 
 // Thread tid of nthreads runs ILP chains, on elements tid + k * nthreads
-// (neighbouring threads on neighbouring elements), in place.  The
-// probe_ops rows store a + b, the layout rows x.
+// (neighbouring threads on neighbouring elements), in place: trips of U
+// iterations unrolled and no further (the compilers would fold 16 of the
+// empty loop's into one), then the inner % U left one at a time.  Chains
+// k < H take the launch's multiplier mul (the shr16 contrasts' IMAD.HI
+// chains), the others SHR_MUL.  The probe_ops rows store a + b, the
+// layout rows x.
 template <int OP, int ILP>
 KT_HD void raw_chain_thread(typename RawType<OP>::type* x, size_t tid,
-                            size_t nthreads, int inner) {
+                            size_t nthreads, int inner, uint32_t mul) {
     using T = typename RawType<OP>::type;
+    constexpr int U = RAW_TRIP / ILP;
+    constexpr int H = raw_hi_chains<OP, ILP>();
     T a[ILP], b[ILP];
+    KT_UNROLL
     for (int k = 0; k < ILP; ++k) a[k] = b[k] = x[tid + k * nthreads];
-    for (int i = 0; i < inner; ++i)
-        for (int k = 0; k < ILP; ++k) raw_iter<OP>(a[k], b[k], i);
+    int i = 0;
+    KT_NO_UNROLL
+    for (; i + U <= inner; i += U) {
+        KT_UNROLL
+        for (int j = 0; j < U; ++j) {
+            uint32_t u, c;
+            raw_index<OP, U>((uint32_t)i, j, u, c);
+            KT_UNROLL
+            for (int k = 0; k < ILP; ++k)
+                raw_iter<OP>(a[k], b[k], u, c, k < H ? mul : SHR_MUL);
+        }
+    }
+    for (; i < inner; ++i) {
+        const uint32_t u = (uint32_t)i + (OP == R_LAYOUT ? 1u : 0u);
+        KT_UNROLL
+        for (int k = 0; k < ILP; ++k)
+            raw_iter<OP>(a[k], b[k], u, 0u, k < H ? mul : SHR_MUL);
+    }
+    KT_UNROLL
     for (int k = 0; k < ILP; ++k) {
         if constexpr (OP == R_LAYOUT || OP == R_EMPTY)
             x[tid + k * nthreads] = a[k];
@@ -281,6 +390,8 @@ int with_raw_chain(int op, int ilp, F&& f) {
         case R_F32MUL: return f.template run<R_F32MUL, 4>();
         case R_F32FMA: return f.template run<R_F32FMA, 4>();
         case R_WIDE: return f.template run<R_WIDE, 4>();
+        case R_SHR16_MIX: return f.template run<R_SHR16_MIX, 4>();
+        case R_SHR16_HI: return f.template run<R_SHR16_HI, 4>();
         default: return -1;
     }
 }

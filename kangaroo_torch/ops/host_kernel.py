@@ -41,6 +41,8 @@ _SIGNATURES = {
     "kt_fe_inv_n": ([_P, _P, _I], None),
     "kt_add_u128_n": ([_P, _P, _I], None),
     "kt_fe_fold_n": ([_P, _P, _I], None),
+    "kt_mulhi_add_n": ([_P] * 4 + [_I], None),
+    "kt_xor3_n": ([_P] * 4 + [_I], None),
     "kt_fe_canon_n": ([_P, _I], None),
     "kt_fe_is_high_n": ([_P, _P, _I], None),
     "kt_fe_neg_n": ([_P, _P, _I], None),
@@ -141,6 +143,29 @@ def fe_inv(a: torch.Tensor) -> torch.Tensor:
     r = np.empty_like(wa)
     load().kt_fe_inv_n(r.ctypes.data, wa.ctypes.data, wa.shape[0])
     return from_words(r)
+
+
+def _words3(name: str, a, b, c) -> np.ndarray:
+    """lib.name(r, a, b, c, n) on uint32 arrays of one shape; returns r."""
+    a, b, c = (np.ascontiguousarray(v, dtype=np.uint32) for v in (a, b, c))
+    if not a.shape == b.shape == c.shape:
+        raise ValueError(f"shapes {a.shape}, {b.shape}, {c.shape} differ")
+    r = np.empty_like(a)
+    getattr(load(), name)(r.ctypes.data, a.ctypes.data, b.ctypes.data,
+                          c.ctypes.data, a.size)
+    return r
+
+
+def mulhi_add(a, b, c) -> np.ndarray:
+    """probes.cuh's mulhi_add, hi32(a * b) + c mod 2^32, elementwise (the
+    host twin of the card's mad.hi.u32)."""
+    return _words3("kt_mulhi_add_n", a, b, c)
+
+
+def xor3(a, b, c) -> np.ndarray:
+    """probes.cuh's xor3, a ^ b ^ c, elementwise (the host twin of the
+    card's lop3.b32)."""
+    return _words3("kt_xor3_n", a, b, c)
 
 
 def _need(t: torch.Tensor, shape, dtype=torch.int32) -> None:

@@ -79,11 +79,29 @@ DELTA_GROUPS["base"] = (32, 64, 128)
 # moves, which either pipe issues one for one (IADD3 and IADD3.X there,
 # IMAD.IADD, IMAD.X and IMAD.MOV on the multiply-add pipe), so they
 # count against the issue rate only: the best split of the two pipes;
-# class "fused" holds an instruction that fuses two integer ops on the
-# ALU pipe (a three-term IADD3, LEA.HI's shift and add) and takes two
-# slots on either pipe otherwise, at its best mix (bound_ms).  How many
-# of a kernel's instructions nvcc puts on the ALU pipe is this design's
-# reading, beside the bound (probes/pkbench.py, probes/pkinv.py).  The
+# class "fused" holds an operation that one ALU-pipe instruction does at
+# that pipe's rate (a three-term IADD3; a shift-and-add, LEA.HI, which
+# probes/probe_ops.py's shr16 row times at the ALU pipe's rate) and
+# that takes two slots otherwise (two adds; a shift and an add; IMAD.HI,
+# which issues at half the IMAD rate: its shr16_hi row), at its best mix
+# (bound_ms).  An instruction form that issues below its pipe's rate
+# counts the pipe's slots it takes (IMAD.WIDE, IMAD.HI: two, class
+# "imad2" where the function needs it) and one issue slot.  Where the
+# function adds the loop index to a term (the probe_ops rows) the index
+# is a value of its own each iteration, one add shared by a thread's ILP
+# chains: 1/ILP "int" an element-iteration (the f32 rows' mix 1 + i *
+# 1e-9 also a conversion, 1/ILP "int", and two fp32 ops); where it is
+# xor-ed into a chain (layout) an unrolled trip folds it into the LOP3's
+# immediate (probes.cuh raw_index) and it costs nothing.  The loop's
+# own counter, compare and branch are this design's, once a trip, not
+# counted (but for the empty loop, which is nothing else).  A row whose
+# threads leave the schedulers short of warps (narrow1 and empty: 2^16
+# threads, 3.9 warps a scheduler) is also bound by its dependent chain's
+# latency, inner steps of the step's latency, read from the same chain
+# at one warp a scheduler (probes/layout_probe.py's _lat rows): its
+# bound is the larger of the two.  How many of a kernel's instructions
+# nvcc puts on the ALU pipe is this design's reading, beside the bound
+# (probes/pkbench.py, probes/pkinv.py, the raw chains' loop trips).  The
 # clock is the one implied by jump_cuda.IMAD_PEAK (half the data sheet's
 # 67 TFLOP/s fp32 rate over 64 x 132 SMs).  Derived, not measured: the
 # raw_chain rows measure them.
@@ -127,30 +145,55 @@ FIELD_COUNTS = {
     "inv": {"imad": jump_cuda.INV_IMAD, "int": INV_ALU + 2 * CANON_INT},
     "gather": {"alu": 9, "lds": 8},   # index, 8 xors; 8 table words
 }
-# per element and iteration, the loop-index mix shared by a thread's
-# chains not counted; a 64-bit wide multiply-add counted as 2 IMAD.  The
-# empty loop's x + 1 per iteration is summed in closed form by the
-# compilers: no operation per iteration.  u32_add: the xor and a + b +
-# u (fused: one IADD3, or two adds).  mask16 and shr16: a does not
-# depend on b, so b's xors of two iterations fuse into one three-input
-# LOP3 (shr16's SASS fuses further, 8 LOP3 a trip of 28
-# element-iterations: probes/probe_ops.py prints the trip); mask16's
-# mask and add, shr16's shift and add (fused: one LEA.HI).
+# Slots per element and iteration (the peaks comment's rule); a 64-bit
+# wide multiply-add one instruction of 2 IMAD slots ("imad2").
+# RAW_PROBE_ILP: the ILP at which the probe_ops rows run, their index add
+# shared by that many chains.
+# u32_add: the xor and a + b + u (fused: one IADD3, or two adds).
+# mask16 and shr16: a does not depend on b, so b's xors of two
+# iterations fuse into one three-input LOP3 (1/2 an element-iteration);
+# mask16's mask (a LOP3) and add; shr16's shift and add (fused: one
+# LEA.HI, or two slots elsewhere).  i32_mul: the multiply-add and b's
+# add.  f32: the row's two ops and b's add, and the mix.  wide: the
+# wide multiply-add, the halves' add and the xor.  layout: the xor (one
+# LOP3 with the index) and the multiply-add.  empty: the loop itself,
+# a trip's counter add, compare, branch and x's add (the compilers add
+# its RAW_TRIP ones at once) over RAW_TRIP iterations.
+RAW_PROBE_ILP = 4
+RAW_TRIP = 128  # probes.cuh RAW_TRIP
+_IX = 1 / RAW_PROBE_ILP
 RAW_COUNTS = {
-    "u32_add": {"alu": 1, "fused": 1}, "u32_mul": {"imad": 1, "alu": 1},
-    "mask16": {"alu": 1.5, "int": 1}, "shr16": {"alu": 2 / 7, "fused": 1},
-    "i32_mul": {"imad": 1, "int": 1}, "f32_add": {"fp32": 3},
-    "f32_mul": {"fp32": 3}, "f32_fma": {"fp32": 3},
-    "wide": {"imad": 2, "int": 1, "alu": 1},
-    "layout": {"imad": 1, "alu": 1}, "empty": {},
+    "u32_add": {"alu": 1, "fused": 1, "int": _IX},
+    "u32_mul": {"imad": 1, "alu": 1, "int": _IX},
+    "mask16": {"alu": 1.5, "int": 1 + _IX},
+    "shr16": {"alu": 0.5, "fused": 1, "int": _IX},
+    "i32_mul": {"imad": 1, "int": 1 + _IX},
+    "f32_add": {"fp32": 3 + 2 * _IX, "int": 2 * _IX},
+    "f32_mul": {"fp32": 3 + 2 * _IX, "int": 2 * _IX},
+    "f32_fma": {"fp32": 3 + 2 * _IX, "int": 2 * _IX},
+    "wide": {"imad2": 1, "int": 1 + _IX, "alu": 1},
+    "layout": {"imad": 1, "alu": 1},
+    "empty": {"int": 4 / RAW_TRIP},
 }
+# shr16's contrast rows hold its shift-and-adds to the forms they time:
+# shr16_hi every one an IMAD.HI (two IMAD slots, "imad2"), shr16_mix
+# SHR16_MIX_CHAINS = 1 of the 4 chains so and the others a LEA.HI (one
+# ALU slot); their bounds count those forms, as wide_walk's its
+# occupancy
+RAW_COUNTS["shr16_hi"] = {"alu": 0.5, "imad2": 1, "int": _IX}
+RAW_COUNTS["shr16_mix"] = {"alu": 0.5 + 3 * _IX, "imad2": _IX, "int": _IX}
 # the instruction each raw row measures (the mnemonics nvcc may use for
-# it), and how many of it one element-iteration issues
+# it), and how many of it one element-iteration issues; shr16_mix
+# splits its shift-and-adds between two forms (probes.cuh
+# SHR16_MIX_CHAINS of RAW_PROBE_ILP chains on IMAD.HI), each of which its
+# SASS must hold
 RAW_SASS = {
     "u32_add": ("IADD3", ("IADD3", "VIADD"), 1),
     "u32_mul": ("IMAD", ("IMAD",), 1),
     "mask16": ("LOP3", ("LOP3", "PRMT"), 1.5),
-    "shr16": ("SHF", ("SHF", "LEA.HI"), 1),
+    "shr16": ("LEA.HI", ("LEA.HI",), 1),
+    "shr16_mix": ("LEA.HI+IMAD.HI", ("LEA.HI", "IMAD.HI"), 1),
+    "shr16_hi": ("IMAD.HI", ("IMAD.HI",), 1),
     "i32_mul": ("IMAD", ("IMAD",), 1),
     "f32_add": ("FADD", ("FADD",), 3),
     "f32_mul": ("FMUL", ("FMUL",), 1),
@@ -412,11 +455,15 @@ def bound_ms(counts: Dict[str, float], work: float,
     """Least time on an H100 SXM for `work` element-rounds issuing
     `counts` slots of each class each (the slowest class at its peak, or
     the issue rate over every class; "fused" at its best mix of one ALU
-    slot or two on either pipe), against `nbytes` of device memory
+    slot or two on either pipe; "imad2" an instruction of two IMAD slots
+    and one issue slot, IMAD.WIDE), against `nbytes` of device memory
     traffic: (ms, "operations" or "bytes")."""
     counts = dict(counts)
     fused = counts.pop("fused", 0)
-    alu, total = counts.get("alu", 0), sum(counts.values())
+    wide = counts.pop("imad2", 0)
+    if wide:
+        counts["imad"] = counts.get("imad", 0) + 2 * wide
+    alu, total = counts.get("alu", 0), sum(counts.values()) - wide
     # y of the fused on the ALU pipe: where the ALU pipe's time, rising
     # with y, meets the issue time, falling with it
     y = min(fused, max(0.0, (PEAK["alu"] * (total + 2 * fused)
@@ -425,7 +472,7 @@ def bound_ms(counts: Dict[str, float], work: float,
     counts["alu"], counts["int"] = alu + y, (counts.get("int", 0)
                                              + 2 * (fused - y))
     per = [n / PEAK[k] for k, n in counts.items() if n and k in PEAK]
-    per.append(sum(counts.values()) / PEAK["issue"])
+    per.append((sum(counts.values()) - wide) / PEAK["issue"])
     ops_s = work * max(per)
     bytes_s = nbytes / jump_cuda.HBM_RATE
     if ops_s >= bytes_s:

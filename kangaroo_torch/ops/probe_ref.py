@@ -9,7 +9,8 @@ kernels for CUDA tensors).
 
   field_chain  P1 (scripts/pkbench.py): a <- op(a, b) `rounds` times;
   raw_chain    P2 (scripts/probe_ops.py, scripts/layout_probe.py): one
-               32-bit instruction per element and iteration;
+               32-bit instruction per element and iteration (shr16's in
+               three kernels, SHR16_OPS);
   delta_walk   P3 (scripts/pkdelta.py): the walk with one component
                switched;
   inv_chain    P4 (scripts/pkinv.py): x <- canon(fn(x) - x) | 1, for
@@ -33,7 +34,11 @@ from . import field, jump_ref
 FIELD_OPS = ("mul", "sqr", "sub", "add", "fold", "canon", "inv", "gather",
              "step")
 RAW_OPS = ("u32_add", "u32_mul", "mask16", "shr16", "i32_mul", "f32_add",
-           "f32_mul", "f32_fma", "wide", "layout", "empty")
+           "f32_mul", "f32_fma", "wide", "layout", "empty", "shr16_mix",
+           "shr16_hi")
+# shr16's function in three kernels: its shift-and-adds on the ALU pipe
+# (LEA.HI), some on the multiply-add pipe (IMAD.HI), or all there
+SHR16_OPS = ("shr16", "shr16_mix", "shr16_hi")
 F32_OPS = ("f32_add", "f32_mul", "f32_fma")
 DELTA_VARIANTS = ("base", "no_inv", "no_sqr", "no_y3mul", "extra_mul",
                   "extra_sub", "no_dp", "fixed_gather", "extra_traffic")
@@ -137,7 +142,7 @@ def raw_chain(op: str, x: torch.Tensor, inner: int) -> torch.Tensor:
             a = (_mul32(a, b) + i) & M32
         elif op == "mask16":
             a = ((a & 0xFFFF) + i) & M32
-        elif op == "shr16":
+        elif op in SHR16_OPS:
             a = ((a >> 16) + i) & M32
         elif op == "wide":
             a = _wide_halves(a, b, i)

@@ -8,16 +8,55 @@ import subprocess
 import numpy as np
 import torch
 
-from ..ops import probe_cuda
+from ..ops import jump_cuda, probe_cuda
 from ..profile_walk import cuda_ms
 from ..utils import sass
 from ..utils.build import BUILD_DIR
 
 REPS = 3
-# dynamic shared memory per block that leaves room for 2 blocks per SM
-# (2 blocks of 128 threads, 2 warps per scheduler: the walk kernel's
-# occupancy at 190 registers), for a probe that alone would run more
-OCC2_SMEM = 100 * 1024
+# Shared memory an SM of compute capability 9.0 shares among its resident
+# blocks (228 KB), and what the runtime keeps of it for each block (1 KB):
+# a block with s bytes of shared memory leaves room for
+# SMEM_PER_SM // (s + SMEM_RESERVED) blocks an SM.
+SMEM_PER_SM = 228 * 1024
+SMEM_RESERVED = 1024
+
+
+def occupancy_smem(blocks: int, static: int = 0) -> int:
+    """Dynamic shared memory per block that holds a kernel with `static`
+    bytes of static shared memory to `blocks` resident blocks an SM
+    (where its registers and threads would allow more): `blocks` such
+    blocks fill the SM's shared memory, one more would overflow it."""
+    if blocks < 1:
+        raise ValueError(f"{blocks} blocks per SM")
+    return SMEM_PER_SM // blocks - SMEM_RESERVED - static
+
+
+def walk_blocks() -> int:
+    """Resident blocks per SM of the plain walk kernel on the card, read
+    from its attributes (jump_cuda.occupancy: registers, shared memory
+    and launch bounds); its launch bounds ask for jump_cuda.MIN_BLOCKS."""
+    return jump_cuda.occupancy(jump_cuda.LANE_QUANTUM)["blocks_per_sm"]
+
+
+def walk_label(blocks: int) -> str:
+    """The label of a contrast held to the walk's occupancy."""
+    return (f"@walk occupancy ({blocks} blocks/SM, "
+            f"{blocks * probe_cuda.THREADS // 128} warps a scheduler)")
+
+
+def hold_to(family: str, name: str, arg: int, blocks: int) -> int:
+    """Dynamic shared memory that holds probe kernel (family, name, arg)
+    to `blocks` resident blocks per SM, checked against the card's
+    occupancy calculator; raises where it does not hold them there."""
+    static = probe_cuda.attrs(family, name, arg)["smem"]
+    smem = occupancy_smem(blocks, static)
+    got = probe_cuda.attrs(family, name, arg, smem)["blocks_per_sm"]
+    if got != blocks:
+        raise RuntimeError(f"{family}/{name}@{arg} at {smem} B of shared "
+                           f"memory holds {got} blocks per SM, not "
+                           f"{blocks}")
+    return smem
 
 
 def require_card() -> torch.device:
@@ -142,6 +181,13 @@ class ClockSampler:
         self.samples = [tuple(float(v) for v in ln.split(","))
                         for ln in out.splitlines() if ln.count(",") == 1]
         return False
+
+    def median_mhz(self) -> float:
+        """The median SM clock of the samples, MHz (nan without any)."""
+        if not self.samples:
+            return float("nan")
+        mhz = sorted(c for c, _ in self.samples)
+        return mhz[len(mhz) // 2]
 
     def summary(self) -> str:
         if not self.samples:

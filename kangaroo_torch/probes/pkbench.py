@@ -14,9 +14,11 @@ its latency), the shared-memory table gather, a jump step without DP or
 distance on the walk's geometry (G = 64 lanes per thread, one grouped
 inversion), `batch_inv` as pkinv's `cur` at the walk's G, and the
 production walk kernel (dp 20, 2 slots).  fe_mul and fe_sqr run once
-more at 2 blocks of 128 threads per SM (2 warps per scheduler, held
-there by dynamic shared memory): their chains alone need far fewer
-registers than the walk and run several times as many warps.  The
+more at the walk kernel's occupancy (its resident blocks per SM, read
+from its attributes: 4 blocks of 128 threads, 4 warps per scheduler,
+held there by dynamic shared memory, common.hold_to): their chains
+alone need far fewer registers than the walk and run several times as
+many warps.  The
 default lane count is the walk's herd, so that the rows whose thread
 owns G lanes run the walk's threads.  For the add-class carry chains
 (fe_sub, fe_add, fe_fold) it counts the SASS instructions of a round
@@ -133,22 +135,21 @@ def run(lanes_log2: int = LANES_LOG2, verbose: bool = True):
             rows[-1]["sass"] = chains[op]
             rows[-1]["design_bound_ms"] = probe_cuda.bound_ms(
                 {"alu": chains[op]["alu_per_round"]}, n * r, 0)[0]
-    # the multiply and the squaring at 2 blocks of 128 threads per SM,
-    # where the chains alone would run several times as many warps
+    # the multiply and the squaring at the walk kernel's occupancy (its
+    # resident blocks per SM, held there by dynamic shared memory), where
+    # the chains alone would run several times as many warps
+    blocks = common.walk_blocks()
     for op in ("mul", "sqr"):
         x = a.clone()
         r = ROUNDS[op]
-        occ = probe_cuda.attrs("field_chain", op, smem=common.OCC2_SMEM)
-        if occ["blocks_per_sm"] != 2:
-            raise RuntimeError(f"{op} at {common.OCC2_SMEM} B of shared "
-                               f"memory holds {occ['blocks_per_sm']} "
-                               f"blocks/SM")
+        smem = common.hold_to("field_chain", op, 0, blocks)
         ms = common.time_ms(lambda: probe_cuda.field_chain(
-            op, x, b, r, smem=common.OCC2_SMEM))
-        rows.append(_row(f"{LABELS[op]} @2 blocks/SM",
+            op, x, b, r, smem=smem))
+        rows.append(_row(f"{LABELS[op]} {common.walk_label(blocks)}",
                          probe_cuda.kernel_key("field_chain", op), ms, r, n,
                          probe_cuda.bound_ms(probe_cuda.field_counts(op, n),
                                              n * r, 3 * 64 * n)))
+        rows[-1]["smem"] = smem
     # the inversion's latency: one block, one lane per thread
     x = a[:, :INV_LANES].contiguous()
     b1 = b[:, :INV_LANES].contiguous()

@@ -174,13 +174,18 @@ def test_bound_ms_fused_at_its_best_mix(counts, alu_slots):
 
 
 @pytest.mark.parametrize("op,ms", [
-    # u32_add at 2^20 x 2^17: 4/3 ALU slots an element-iteration, the
-    # whole on the ALU pipe (2 slots, 16.411 ms) being the SASS's
-    ("u32_add", 2 ** 37 * 4 / 3 / 16.75e12 * 1e3),
-    # mask16: 1.5 LOP3 on the ALU pipe, the add anywhere
+    # u32_add at 2^20 x 2^17: the xor, a + b + u (fused) and the index
+    # add shared by 4 chains (1/4 "int"): 17/12 ALU slots an
+    # element-iteration (5/12 of the fused op as IADD3), where the ALU
+    # pipe meets the issue rate
+    ("u32_add", 2 ** 37 * 17 / 12 / 16.75e12 * 1e3),
+    # mask16: 1.5 LOP3 on the ALU pipe, the adds anywhere
     ("mask16", 2 ** 37 * 1.5 / 16.75e12 * 1e3),
-    ("shr16", 2 ** 37 * 6 / 7 / 16.75e12 * 1e3),
-    # wide: IMAD.WIDE's two IMAD slots bind
+    # shr16: half a LOP3 (b's xors, two a three-input LOP3), the
+    # shift-and-add (fused: LEA.HI, or two slots) and the index's 1/4:
+    # 13/12 ALU slots (7/12 of the shift-and-adds as LEA.HI)
+    ("shr16", 2 ** 37 * 13 / 12 / 16.75e12 * 1e3),
+    # wide: IMAD.WIDE's two IMAD slots bind (one issue slot)
     ("wide", 2 ** 37 * 2 / 16.75e12 * 1e3),
 ])
 def test_raw_bounds_by_the_rule(op, ms):
