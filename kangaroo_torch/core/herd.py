@@ -25,6 +25,10 @@ The conversions between device and mod-n distances (the JAX herd's
 device_distance and true_distance) are vectorized over lanes in
 `utils.packing` (device_dist_limbs, true_dist_limbs), where the work
 files use them.
+
+create_herd and create_herd_shards record the spans `herd.draws` (the
+host's draws) and `herd.kG` (the positions' k*G, one a shard: launches
+on a card, which run on after the span).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from ..constants import WILD
-from ..utils import rng as rng_mod
+from ..utils import rng as rng_mod, spans
 from . import curve
 
 _W32 = 0xFFFFFFFF
@@ -181,10 +185,12 @@ def create_herd(
     when only tame kangaroos are created.  In symmetry mode every lane
     starts normalized, in class 0.
     """
-    r = draw_start_words(nb, range_power, rng, symmetry)
+    with spans.span("herd.draws"):
+        r = draw_start_words(nb, range_power, rng, symmetry)
     types = (np.arange(nb) + first_type) % 2
-    return herd_from_draws(r, types, width_div2, key_point, device=device,
-                           symmetry=symmetry)
+    with spans.span("herd.kG"):
+        return herd_from_draws(r, types, width_div2, key_point,
+                               device=device, symmetry=symmetry)
 
 
 def create_herd_shards(
@@ -203,11 +209,12 @@ def create_herd_shards(
     order, and each shard's positions are made on its device under its
     stream, lane types by the global lane.  Returns one (px, py, d) per
     shard, bit-equal to create_herd's herd split at the same lanes."""
-    r = draw_start_words(nb, range_power, rng, symmetry)
+    with spans.span("herd.draws"):
+        r = draw_start_words(nb, range_power, rng, symmetry)
     types = (np.arange(nb) + first_type) % 2
     out = []
     for s in shards:
-        with s.walk():
+        with s.walk(), spans.span("herd.kG"):
             out.append(herd_from_draws(
                 r[s.lo:s.hi], types[s.lo:s.hi], width_div2, key_point,
                 device=s.device, symmetry=symmetry))

@@ -28,6 +28,7 @@ writes the herd alone, to a local HEADK file or through `save_hook`
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
 import time
@@ -40,7 +41,7 @@ import torch
 from ..constants import HASH_SIZE, N_ORDER, TAME
 from ..io import backup
 from ..parallel import sharding
-from ..utils import packing, rng as rng_mod
+from ..utils import packing, rng as rng_mod, spans
 from . import curve, herd as herd_mod
 from .collision import collision_check
 from .config import ProblemConfig
@@ -90,18 +91,23 @@ class SolveStats:
     # of the dead, DPs already in the table with the same distance: a
     # lane walking a trail that one of its own type (or itself) walked
     dup: int = 0
-    time: float = 0.0          # walk wall time (s), a loaded file's included
-    herd_time: float = 0.0     # herd creation (or restore) wall time (s)
+    # walk wall time (s), a loaded file's included: the loop's start to
+    # the end of its final drain and synchronise (span `sync`)
+    time: float = 0.0
+    herd_time: float = 0.0     # herd creation (or restore): span `herd`
     ticks: int = 0
     expected_ops: float = 0.0
     # DP hits beyond the per-lane capture slots of a launch window
     # (reference warns on its bounded output ring, GPUEngine.cu:641-648)
     lost: int = 0
     saves: int = 0             # background saves started
-    save_stall: float = 0.0    # solver-thread seconds spent starting them
-    save_wait: float = 0.0     # ... and waiting for a save still running
-    # per drained tick, each shard's seconds in its compaction and copy
-    # (the wait for its window's end included)
+    # solver-thread seconds spent starting them (spans `save`) ...
+    save_stall: float = 0.0
+    # ... and waiting for a save still running (spans `save.wait`)
+    save_wait: float = 0.0
+    # per drained tick, each shard's seconds in its compaction and copy,
+    # the wait for its window's end included (spans `compact.wait` and
+    # `compact`)
     compact_s: List[Tuple[float, ...]] = field(default_factory=list)
 
 
@@ -355,7 +361,20 @@ class KangarooSolver:
         opts.device_timeout raises DeviceHangError inside the loop; the
         solve then writes its table alone to opts.work_file (the -wsplit
         name with -wsplit; not in client mode, whose table is empty) and
-        returns None (kangaroo_tpu/core/solver.py:1222-1245)."""
+        returns None (kangaroo_tpu/core/solver.py:1222-1245).
+
+        Spans (utils/spans.py, one serial a call): `solve` holds
+        `jump_table`, `herd` (`herd.draws`, `herd.kG` inside), one
+        `tick` a loop iteration with each shard's `compact.wait` and
+        `compact`, `launch`, `drain` (`reset` inside) and `save`
+        (`save.wait`), and `finish` (the final `drain`, `sync`, the
+        herd's gather and the last save's join).  SolveStats's timers
+        are read from them."""
+        with spans.span("solve"):
+            return self._solve(key_idx, progress, max_ticks, dp_sink,
+                               save_hook)
+
+    def _solve(self, key_idx, progress, max_ticks, dp_sink, save_hook):
         from ..ops import jump_cuda, jump_ref
 
         opts = self.opts
@@ -363,8 +382,6 @@ class KangarooSolver:
         cuda = self.device.type == "cuda"
         sym = opts.symmetry
         self.init_search_key(key_idx)
-        jt = [torch.from_numpy(a.astype(np.int32))
-              for a in create_jump_table(self.range_power, sym).as_arrays()]
         dp_size = opts.dp_size
         if dp_size < 0:
             dp_size = self.balanced_dp(
@@ -407,8 +424,11 @@ class KangarooSolver:
             self.loaded_kangaroos = self.last_state
         self.stats.expected_ops, _, _ = self.compute_expected(
             float(dp_size), opts.nb_kangaroo)
-        tables = sharding.replicate(shards, *jt,
-                                    jump_ref.dp_limb_masks(dp_size))
+        with spans.span("jump_table"):
+            jt = [torch.from_numpy(a.astype(np.int32)) for a in
+                  create_jump_table(self.range_power, sym).as_arrays()]
+            tables = sharding.replicate(shards, *jt,
+                                        jump_ref.dp_limb_masks(dp_size))
         rng = rng_mod.MT19937(
             opts.seed if opts.seed is not None
             else (time.time_ns() & 0xFFFFFFFF)
@@ -418,27 +438,27 @@ class KangarooSolver:
         if cuda:
             jump_cuda.load()  # an nvcc build belongs to set-up, not the walk
 
-        t_herd = time.time()
-        if self.loaded_kangaroos is not None:
-            herds = sharding.shard_herd(
-                shards, *self._restore_herd(self.loaded_kangaroos, rng))
-            self.loaded_kangaroos = None
-        else:
-            herds = herd_mod.create_herd_shards(
-                n, self.range_power, self.width_div2, self.key_to_search,
-                shards, TAME, rng, symmetry=sym)
-        # one [px, py, d, symclass] per shard; a new or restored herd
-        # starts normalized, in class 0 (the reference's restore
-        # reallocates symClass zeroed)
-        states = []
-        for sh, h in zip(shards, herds):
-            with sh.walk():
-                states.append(list(h) + [
-                    torch.zeros((sh.hi - sh.lo,), dtype=torch.int32,
-                                device=sh.device) if sym else None])
-        del herds
-        sharding.synchronize(shards)
-        self.stats.herd_time = time.time() - t_herd
+        with spans.span("herd") as herd_span:
+            if self.loaded_kangaroos is not None:
+                herds = sharding.shard_herd(
+                    shards, *self._restore_herd(self.loaded_kangaroos, rng))
+                self.loaded_kangaroos = None
+            else:
+                herds = herd_mod.create_herd_shards(
+                    n, self.range_power, self.width_div2, self.key_to_search,
+                    shards, TAME, rng, symmetry=sym)
+            # one [px, py, d, symclass] per shard; a new or restored herd
+            # starts normalized, in class 0 (the reference's restore
+            # reallocates symClass zeroed)
+            states = []
+            for sh, h in zip(shards, herds):
+                with sh.walk():
+                    states.append(list(h) + [
+                        torch.zeros((sh.hi - sh.lo,), dtype=torch.int32,
+                                    device=sh.device) if sym else None])
+            del herds
+            sharding.synchronize(shards)
+        self.stats.herd_time = herd_span.seconds
 
         result = None
         wd2 = self.width_div2
@@ -446,14 +466,24 @@ class KangarooSolver:
         tick_fn = sharding.make_sharded_jump_steps(shards, nb_run, n_slots,
                                                    sym)
 
-        def pull(sh, wins):
-            """One shard's DPs of a tick's windows (sharding.compact)
-            under the watchdog (its reads block on the card); the
-            seconds go to stats.compact_s."""
-            t = time.perf_counter()
-            out = self._host_read(
-                lambda: sharding.compact(sh, wins, n_slots, nb_run))
-            return out, time.perf_counter() - t
+        def pull(sh, wins, done):
+            """One shard's DPs of a tick's windows under the watchdog,
+            in one read: the wait for `done` (an event recorded after
+            the shard's last window; None on the CPU), then
+            sharding.compact.  Spans `compact.wait` and `compact`;
+            their seconds go to stats.compact_s."""
+            def read():
+                if done is not None:
+                    done.synchronize()
+                waited = spans.now()
+                return waited, sharding.compact(sh, wins, n_slots, nb_run)
+
+            t = spans.now()
+            waited, out = self._host_read(read)
+            end = spans.now()
+            spans.add("compact.wait", t, waited)
+            spans.add("compact", waited, end)
+            return out, (end - t) * 1e-9
 
         def merged(pulled):
             """The shards' (lost, block)s as one tick's; their seconds
@@ -498,57 +528,62 @@ class KangarooSolver:
         sink_end = False
 
         def drain(pulled):
-            """Insert one tick's DPs; resolve collisions; reset dead
-            lanes.  Returns True when the key is solved, or in client
-            mode when the sink reports the end of the search."""
+            """Insert one tick's DPs (each shard's pull, merged); resolve
+            collisions; reset dead lanes.  Returns True when the key is
+            solved, or in client mode when the sink reports the end of
+            the search.  Span `drain`."""
             nonlocal result, sink_end
-            lost, blk = pulled
-            if lost:
-                self.stats.lost += lost
-                if not self._lost_warned and not opts.quiet:
-                    self._lost_warned = True
-                    print(f"\nWarning, {lost} items lost\nHint: increase "
-                          f"dp bit number or decrease -nbrun to lower the "
-                          f"DP rate per launch window")
-            if not len(blk):
+            with spans.span("drain"):
+                lost, blk = merged(pulled)
+                if lost:
+                    self.stats.lost += lost
+                    if not self._lost_warned and not opts.quiet:
+                        self._lost_warned = True
+                        print(f"\nWarning, {lost} items lost\nHint: "
+                              f"increase dp bit number or decrease -nbrun "
+                              f"to lower the DP rate per launch window")
+                if not len(blk):
+                    return False
+                rec, lanes = encode_records(blk)
+                m = rec.shape[0]
+                if dp_sink is not None:
+                    # the wire's kIdx column carries the (global) origin
+                    # lane
+                    wire = np.empty((m, 40), dtype=np.uint8)
+                    wire[:, 0:4] = lanes.astype("<u4").view(
+                        np.uint8).reshape(m, 4)
+                    wire[:, 4:] = rec
+                    sink_end = bool(dp_sink(wire.tobytes(), m))
+                    return sink_end
+                resets = []
+                # chunked like the JAX solver's drain, so dead-lane
+                # resets (and their RNG draws) come in the same order
+                for off in range(0, m, DRAIN_CHUNK):
+                    part = min(DRAIN_CHUNK, m - off)
+                    _, dup_idx, dup_total, colls = (
+                        self.hash_table.add_batch_raw(
+                            rec[off:off + part].tobytes(), part))
+                    self.stats.dead += dup_total
+                    self.stats.dup += dup_total
+                    resets += [int(lanes[off + i]) for i in dup_idx]
+                    for _, d_new, d_old, idx in colls:
+                        d1, t1 = calc_dist_and_type(d_old)
+                        d2, t2 = calc_dist_and_type(d_new)
+                        dead, res = collision_check(
+                            d1, t1, d2, t2, self.key_to_search,
+                            self.key_to_search_neg, self.range_start,
+                            width_div2_sym=wd2_sym,
+                        )
+                        if res is not None:
+                            result = res
+                            return True
+                        if dead:
+                            self.stats.dead += 1
+                            resets.append(int(lanes[off + idx]))
+                if resets:
+                    with spans.span("reset"):
+                        self._reset_lanes(states, resets, rng)
                 return False
-            rec, lanes = encode_records(blk)
-            m = rec.shape[0]
-            if dp_sink is not None:
-                # the wire's kIdx column carries the (global) origin lane
-                wire = np.empty((m, 40), dtype=np.uint8)
-                wire[:, 0:4] = lanes.astype("<u4").view(np.uint8).reshape(
-                    m, 4)
-                wire[:, 4:] = rec
-                sink_end = bool(dp_sink(wire.tobytes(), m))
-                return sink_end
-            resets = []
-            # chunked like the JAX solver's drain, so dead-lane resets
-            # (and their RNG draws) come in the same order
-            for off in range(0, m, DRAIN_CHUNK):
-                part = min(DRAIN_CHUNK, m - off)
-                _, dup_idx, dup_total, colls = self.hash_table.add_batch_raw(
-                    rec[off:off + part].tobytes(), part)
-                self.stats.dead += dup_total
-                self.stats.dup += dup_total
-                resets += [int(lanes[off + i]) for i in dup_idx]
-                for _, d_new, d_old, idx in colls:
-                    d1, t1 = calc_dist_and_type(d_old)
-                    d2, t2 = calc_dist_and_type(d_new)
-                    dead, res = collision_check(
-                        d1, t1, d2, t2, self.key_to_search,
-                        self.key_to_search_neg, self.range_start,
-                        width_div2_sym=wd2_sym,
-                    )
-                    if res is not None:
-                        result = res
-                        return True
-                    if dead:
-                        self.stats.dead += 1
-                        resets.append(int(lanes[off + idx]))
-            if resets:
-                self._reset_lanes(states, resets, rng)
-            return False
 
         # Pipelined loop.  Each iteration compacts and copies every
         # shard's tick T-1 DPs, shard by shard (each waits only for its
@@ -562,70 +597,91 @@ class KangarooSolver:
         # tick late, exactly as in the JAX solver's loop (dispatch T,
         # then drain T-1), and the same class of slack as the
         # reference's asynchronous GPU readback (GPUEngine.cu:607-677).
-        pending = None
+        pending = pending_done = None
         self.stats.count = self.offset_count
-        t0 = time.time()
-        last_status = t0
-        last_save = t0
+        t0 = spans.now()
+        last_status = last_save = t0
         tick = 0
         stop = False
         hung = False
-        try:
-            while result is None and not stop:
-                if max_ticks is not None and tick >= max_ticks:
-                    break
-                if (opts.max_step > 0 and self.stats.count
-                        > opts.max_step * self.stats.expected_ops):
-                    break
-                # tick T counts from its start, as the JAX solver counts
-                # a tick at its dispatch (a hang's file holds its count)
-                self.stats.count += n * nb_run * kw
-                tick += 1
-                pulled = (None if pending is None else
-                          [pull(sh, w) for sh, w in zip(shards, pending)])
-                pending = [[] for _ in shards]
-                for _ in range(kw):
-                    for st, w, out in zip(states, pending,
-                                          tick_fn(states, tables)):
-                        st[:3] = out[0:3]
-                        if sym:
-                            st[3] = out[7]
-                        w.append(out[3:7])
-                if pulled is not None:
-                    stop = drain(merged(pulled))
-                now = time.time()
-                if progress is not None and now - last_status > 2.0:
-                    progress(self, now - t0)
-                    last_status = now
-                if ((opts.work_file or save_hook is not None)
-                        and result is None and not sink_end
-                        and now - last_save > opts.save_period):
-                    # tick T's herd (after T-1's resets), the DPs up to
-                    # T-1 and tick T in the count, as the JAX solver saves
-                    if save_hook is not None:
-                        self._run_save_hook(save_hook, states, now - t0)
-                    else:
-                        self._save_work(states, now - t0,
-                                        kangaroo_only=dp_sink is not None)
-                    last_save = now
-            if result is None and not sink_end and pending is not None:
-                drain(merged([pull(sh, w) for sh, w in zip(shards, pending)]))
-            if cuda:
-                # the last dispatched tick is in stats.count: finish it,
-                # so that count / time is the rate of work actually done
-                self._host_read(lambda: sharding.synchronize(shards))
-        except DeviceHangError as e:
-            hung = True
-            self._on_hang(e, dp_sink, time.time() - t0)
-        self.stats.ticks = tick
-        self.stats.time = self.offset_time + time.time() - t0
-        self.last_state = sharding.gather_herd(
-            shards, [st[:3] for st in states]) if not hung else None
-        # a repeated solve() on this key continues from here
-        self.offset_count = self.stats.count
-        self.offset_time = self.stats.time
-        if not hung:
-            self.finish_save()
+        with contextlib.ExitStack() as finishing:
+            try:
+                while result is None and not stop:
+                    if max_ticks is not None and tick >= max_ticks:
+                        break
+                    if (opts.max_step > 0 and self.stats.count
+                            > opts.max_step * self.stats.expected_ops):
+                        break
+                    with spans.span("tick"):
+                        # tick T counts from its start, as the JAX solver
+                        # counts a tick at its dispatch (a hang's file
+                        # holds its count)
+                        self.stats.count += n * nb_run * kw
+                        tick += 1
+                        pulled = None if pending is None else [
+                            pull(sh, w, e) for sh, w, e
+                            in zip(shards, pending, pending_done)]
+                        with spans.span("launch"):
+                            pending = [[] for _ in shards]
+                            for _ in range(kw):
+                                for st, w, out in zip(
+                                        states, pending,
+                                        tick_fn(states, tables)):
+                                    st[:3] = out[0:3]
+                                    if sym:
+                                        st[3] = out[7]
+                                    w.append(out[3:7])
+                            pending_done = [
+                                None if sh.stream is None
+                                else sh.stream.record_event()
+                                for sh in shards]
+                        if pulled is not None:
+                            stop = drain(pulled)
+                        now = spans.now()
+                        if progress is not None and now - last_status > 2e9:
+                            progress(self, (now - t0) * 1e-9)
+                            last_status = now
+                        if ((opts.work_file or save_hook is not None)
+                                and result is None and not sink_end
+                                and now - last_save > opts.save_period * 1e9):
+                            # tick T's herd (after T-1's resets), the DPs
+                            # up to T-1 and tick T in the count, as the
+                            # JAX solver saves
+                            elapsed = (now - t0) * 1e-9
+                            if save_hook is not None:
+                                self._run_save_hook(save_hook, states,
+                                                    elapsed)
+                            else:
+                                self._save_work(
+                                    states, elapsed,
+                                    kangaroo_only=dp_sink is not None)
+                            last_save = now
+                # span `finish`: the last drain, the synchronise, the
+                # herd's gather and the last save's join
+                finishing.enter_context(spans.span("finish"))
+                if result is None and not sink_end and pending is not None:
+                    drain([pull(sh, w, e) for sh, w, e
+                           in zip(shards, pending, pending_done)])
+                with spans.span("sync") as sync:
+                    if cuda:
+                        # the last dispatched tick is in stats.count:
+                        # finish it, so that count / time is the rate of
+                        # work actually done
+                        self._host_read(lambda: sharding.synchronize(shards))
+                loop_end = sync.end
+            except DeviceHangError as e:
+                hung = True
+                self._on_hang(e, dp_sink, (spans.now() - t0) * 1e-9)
+                loop_end = spans.now()
+            self.stats.ticks = tick
+            self.stats.time = self.offset_time + (loop_end - t0) * 1e-9
+            self.last_state = sharding.gather_herd(
+                shards, [st[:3] for st in states]) if not hung else None
+            # a repeated solve() on this key continues from here
+            self.offset_count = self.stats.count
+            self.offset_time = self.stats.time
+            if not hung:
+                self.finish_save()
         if result is not None and opts.out_file:
             self._output(result)
         return result
@@ -745,14 +801,15 @@ class KangarooSolver:
 
     def _run_save_hook(self, hook, states, elapsed):
         """Client mode's -wss save: the hook gets the snapshot's host
-        buffers on the solver thread, once the copies are done."""
-        t0 = time.perf_counter()
-        snap, evs = self._snapshot(states)
-        if evs:
-            self._host_read(lambda: [ev.synchronize() for ev in evs])
-        hook(self, *(b.numpy() for b in snap), elapsed)
+        buffers on the solver thread, once the copies are done (span
+        `save`)."""
+        with spans.span("save") as sp:
+            snap, evs = self._snapshot(states)
+            if evs:
+                self._host_read(lambda: [ev.synchronize() for ev in evs])
+            hook(self, *(b.numpy() for b in snap), elapsed)
         self.stats.saves += 1
-        self.stats.save_stall += time.perf_counter() - t0
+        self.stats.save_stall += sp.seconds
 
     def _save_work(self, states, elapsed, kangaroo_only=False):
         """Checkpoint without stalling the walk.
@@ -768,18 +825,25 @@ class KangarooSolver:
         instead pauses all workers for the whole write
         (Backup.cpp:449-472); -wt bounds the wait for a save that is
         still running, after which this interval's save is skipped.
+        Spans `save.wait` (the wait) and `save` (the rest).
         """
         prev = self._save_thread
         if prev is not None and prev.is_alive():
-            t0 = time.perf_counter()
-            prev.join(timeout=self.opts.save_timeout)
-            self.stats.save_wait += time.perf_counter() - t0
+            with spans.span("save.wait") as sp:
+                prev.join(timeout=self.opts.save_timeout)
+            self.stats.save_wait += sp.seconds
             if prev.is_alive():
                 if not self.opts.quiet:
                     print("\nSaveWork timeout !")
                 return
         self._raise_save_error()
-        t0 = time.perf_counter()
+        with spans.span("save") as sp:
+            self._start_save(states, elapsed, kangaroo_only)
+        self.stats.saves += 1
+        self.stats.save_stall += sp.seconds
+
+    def _start_save(self, states, elapsed, kangaroo_only):
+        """_save_work's snapshot, table swap and writer thread."""
         snap, evs = (self._snapshot(states)
                      if self.opts.save_kangaroo or kangaroo_only
                      else (None, []))
@@ -812,8 +876,6 @@ class KangarooSolver:
 
         self._save_thread = threading.Thread(target=write, daemon=True)
         self._save_thread.start()
-        self.stats.saves += 1
-        self.stats.save_stall += time.perf_counter() - t0
 
     def _raise_save_error(self):
         err, self._save_error = self._save_error, None

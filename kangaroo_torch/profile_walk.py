@@ -4,9 +4,11 @@
 
 Prints one line per measurement, at the main path's shape (2^22 lanes,
 1024 steps per launch, DP 14, 6 slots):
-  * herd creation, split into the host part (MT19937 draws) and the
-    rest (scalar and distance limbs, batched k*G and the wild key add
-    on the card);
+  * herd creation (`create_herd` in a `herd` span, through its
+    synchronise), split by its spans: `herd.draws` (the host's MT19937
+    draws), `herd.kG` (scalar and distance limbs, and the batched k*G
+    and wild key add launched on the card) and the rest, the card
+    finishing them;
   * the walk kernel: its geometry and occupancy (threads x G lanes
     per block, registers, resident blocks per SM, warps per scheduler),
     ms per launch (CUDA events, after a warm-up), G jumps/s, the
@@ -16,7 +18,6 @@ Prints one line per measurement, at the main path's shape (2^22 lanes,
 from __future__ import annotations
 
 import subprocess
-import time
 
 import numpy as np
 import torch
@@ -24,6 +25,7 @@ import torch
 from .core import curve, herd
 from .core.jumptable import create_jump_table
 from .ops import jump_cuda, jump_ref
+from .utils import spans
 from .utils.rng import MT19937
 
 RANGE_POWER = 64
@@ -48,18 +50,20 @@ def cuda_ms(fn, reps: int = 1):
 
 
 def profile_herd(n, dev):
-    """Herd creation split into host and device parts; returns the herd."""
+    """Herd creation split by its spans; returns the herd."""
     wd2 = ((1 << RANGE_POWER) - 1) >> 1
     key = curve.mul(0xDEADBEEF12345)
-    t0 = time.time()
-    r = herd.draw_start_words(n, RANGE_POWER, MT19937(0x5EED))
-    types = np.arange(n) % 2
-    host_s = time.time() - t0
-    t0 = time.time()
-    px, py, d = herd.herd_from_draws(r, types, wd2, key, device=dev)
-    torch.cuda.synchronize()
-    print(f"herd {n} lanes: draws {host_s:.2f} s, limbs + positions on "
-          f"the card {time.time() - t0:.2f} s", flush=True)
+    with spans.span("herd") as whole:
+        px, py, d = herd.create_herd(n, RANGE_POWER, wd2, key, 0,
+                                     MT19937(0x5EED), device=dev)
+        torch.cuda.synchronize()
+    inner = {s.name: s.seconds for s in spans.recorded()
+             if s.parent == whole.id}
+    tail = whole.seconds - sum(inner.values())
+    print(f"herd {n} lanes: {whole.seconds:.2f} s: draws "
+          f"{inner['herd.draws']:.2f} s, limbs + k*G launched "
+          f"{inner['herd.kG']:.2f} s, the card finishing {tail:.2f} s",
+          flush=True)
     return px, py, d
 
 
