@@ -22,7 +22,16 @@ Phases:
      kernel's SASS (cuobjdump); for each walk kernel its registers,
      spills, resident blocks per SM (kt_walk_occupancy) and warps per
      scheduler at 2^22 lanes -- it fails unless both run without spill
-     and fit a 2^22-lane grid in one wave;
+     and fit a 2^22-lane grid in one wave; the herd kernel's library
+     beside them, with its registers, local bytes and spills;
+  3h. herd kernel vs its plain version (ops/herd_cuda.py): the start
+     positions of a batch40 key's herd (8192 lanes x 5 windows) and of a
+     puzzle85 search's (2^22 lanes x 11 windows), keyToSearch on wild
+     lanes; one launch a call, bit-equal (tolerance 0), the kernel timed
+     with CUDA events over HERD_REPS launches; the herd of phases 3-4s
+     (2^22 lanes, plain and -sym) and the solves and STATS batches of
+     phases 5, 5s and 11 then count their own herd-kernel launches and
+     fail on none;
   3. plain kernel vs plain walk at the main path's shape: the kernel
      walks a 2^22-lane herd (512 blocks of 128 threads x 64 lanes) once
      with slot overflow (dp 6, 2 slots, 128 steps) and once as the
@@ -151,8 +160,9 @@ Phases:
      lanes a shard, 2 steps) against the plain walk on the CPU over the
      whole herd; python -m kangaroo_torch.graft_entry in a process of its
      own; tolerance 0, py mod p;
-  12. the kernels line (launches by path, the new paths' included), the
-     card line and the result line.
+  12. the kernels line (launches by path, the new paths' included; the
+     herd kernel's by the paths of 3h), the card line and the result
+     line.
 """
 
 import contextlib
@@ -211,6 +221,12 @@ STATS_CMP_WINDOWS = 4
 # HBM3 at 700 W; PERF.md section 6): the -sym walk misses its model
 # (1.527), so the batch's -sym mean is held to this measurement
 SYM_MEAN_1000 = (2.0756, 0.0330)
+# phase 3h: (lanes, byte windows, range bits) of a batch40 key's herd and
+# of a puzzle85 search's, and the timed launches of each
+HERD_SHAPES = ((STATS_NK, 5, 40), (N_FULL, 11, 85))
+HERD_REPS = 20
+# the herd kernel's launches by path (_herd_count), for the kernels line
+HERD_LAUNCHES = {}
 
 
 def phase_device():
@@ -232,15 +248,17 @@ def phase_build():
     probe kernels' ptxas reports and each walk kernel's SASS hash."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from kangaroo_torch.ops import jump_cuda, probe_cuda
+    from kangaroo_torch.ops import herd_cuda, jump_cuda, probe_cuda
     from kangaroo_torch.utils import sass
     from kangaroo_torch.utils.build import BUILD_DIR
 
     t = time.time()
-    with ThreadPoolExecutor(2) as ex:
-        walk_f, probe_f = ex.submit(jump_cuda.build), ex.submit(
-            probe_cuda.build)
+    with ThreadPoolExecutor(3) as ex:
+        walk_f, probe_f, herd_f = (ex.submit(jump_cuda.build),
+                                   ex.submit(probe_cuda.build),
+                                   ex.submit(herd_cuda.build))
         lib, probe_lib = walk_f.result(), probe_f.result()
+        herd_lib = herd_f.result()
     log = (BUILD_DIR / f"{lib.name}.log").read_text()
     kinds = {"ILb0E": "plain:", "ILb1E": "symmetry:"}
     ptx = [next((v for k, v in kinds.items() if k in ln), ln.strip())
@@ -274,6 +292,12 @@ def phase_build():
         if spill or not occ["one_wave"]:
             raise SystemExit(f"walk kernel ({label}) spills or does not fit "
                              f"2^22 lanes in one wave")
+    (r,) = sass.ptxas_report(
+        (BUILD_DIR / f"{herd_lib.name}.log").read_text()).values()
+    print(f"[2 build] herd kernel: {r.get('regs')} registers, spill "
+          f"stores/loads {r.get('spill_stores')}/{r.get('spill_loads')} B, "
+          f"{r.get('stack')} B stack (prefix products up to "
+          f"{herd_cuda.MAX_GROUP - 1} x 32 B)", flush=True)
     rep = sass.ptxas_report((BUILD_DIR / f"{probe_lib.name}.log").read_text())
     pnames = sass.demangle(sorted(rep))
     spills = [pnames[k] for k, r in rep.items()
@@ -289,17 +313,120 @@ def phase_build():
 
 
 def _herd(n, dev, sym=False):
+    """A herd of n lanes on dev, made by one herd-kernel launch; returns
+    ((px, py, d), seconds)."""
     from kangaroo_torch.core import curve, herd
+    from kangaroo_torch.ops import herd_cuda
     from kangaroo_torch.utils.rng import MT19937
 
     wd2 = ((1 << RANGE_POWER) - 1) >> 1
     torch.cuda.synchronize()
+    herd_cuda.LAUNCHES = 0
     t = time.time()
     px, py, d = herd.create_herd(n, RANGE_POWER, wd2,
                                  curve.mul(0xDEADBEEF12345), 0,
                                  MT19937(SEED), device=dev, symmetry=sym)
     torch.cuda.synchronize()
-    return (px, py, d), time.time() - t
+    s = time.time() - t
+    _herd_count(f"herd {n} lanes{' -sym' if sym else ''}", exact=1)
+    return (px, py, d), s
+
+
+def _herd_count(path, least=1, exact=None):
+    """The herd kernel's launches since herd_cuda.LAUNCHES was last set
+    to 0, kept under `path` for the kernels line and printed; fails
+    below `least` (a path that took the plain k*G on the card shows 0)
+    or, where given, unless they are `exact`."""
+    from kangaroo_torch.ops import herd_cuda
+
+    k = HERD_LAUNCHES[path] = herd_cuda.LAUNCHES
+    print(f"[herd launches] {path}: {k}", flush=True)
+    if k < least or (exact is not None and k != exact):
+        raise SystemExit(f"{path}: {k} herd-kernel launches, "
+                         f"{exact if exact is not None else f'>= {least}'} "
+                         f"wanted")
+    return k
+
+
+def _herd_inputs(n, windows, bits, dev):
+    """mag, neg, wild of n lanes: |d| uniform below 2^bits (bits <= 8
+    windows), neg on random lanes, wild on odd lanes."""
+    rs = np.random.RandomState(SEED + n)
+    by = rs.randint(0, 256, (2 * ((windows + 1) // 2), n))
+    by[windows:] = 0
+    by[(bits - 1) // 8] &= (1 << (bits - 8 * ((bits - 1) // 8))) - 1
+    mag = np.zeros((16, n), dtype=np.int32)
+    mag[:by.shape[0] // 2] = by[0::2] | (by[1::2] << 8)
+    neg = rs.random_sample(n) < 0.5
+    wild = np.arange(n) % 2 == 1
+    return [torch.from_numpy(a).to(dev) for a in (mag, neg, wild)]
+
+
+def phase_herd(dev):
+    """kt_herd_kernel against its plain version at HERD_SHAPES; returns
+    the kernels line's entry."""
+    from kangaroo_torch.core import curve
+    from kangaroo_torch.ops import herd_cuda
+
+    key = curve.mul(0xDEADBEEF12345)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, worst = [], 0
+    start = herd_cuda.LAUNCHES
+    for n, windows, bits in HERD_SHAPES:
+        mag, neg, wild = _herd_inputs(n, windows, bits, dev)
+        launches = herd_cuda.LAUNCHES
+        got = herd_cuda.positions(mag, neg, wild, key, windows)
+        torch.cuda.synchronize()
+        if herd_cuda.LAUNCHES != launches + 1:
+            raise SystemExit("herd kernel: not one launch a call")
+        t = time.time()
+        want = herd_cuda.positions_plain(mag, neg, wild, key, windows)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t) * 1e3
+        err = max(_max_err(a, b) for a, b in zip(got, want))
+        worst = max(worst, err)
+        if err:
+            raise SystemExit(f"herd kernel differs from its plain version "
+                             f"at {n} lanes x {windows} windows: {err}")
+        del want
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(HERD_REPS):
+            herd_cuda.positions(mag, neg, wild, key, windows)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / HERD_REPS
+        adds = herd_cuda.adds_needed(mag.cpu().numpy(), wild.cpu().numpy(),
+                                     windows)
+        bound = herd_cuda.bound_ms(n, adds)
+        g = herd_cuda.group_for(n, sms)
+        print(f"[3h herd] {n} lanes x {windows} windows + key: kernel "
+              f"{ms:.4f} ms (G {g}, {-(-n // (herd_cuda.THREADS * g))} "
+              f"blocks), bound {bound:.4f} ms ({adds} adds, "
+              f"{100 * bound / ms:.1f} %), plain {plain_ms:.1f} ms; 1 launch "
+              f"a call, bit-equal", flush=True)
+        rows.append((n, windows, ms, bound, plain_ms))
+    launches = herd_cuda.LAUNCHES - start
+    HERD_LAUNCHES["3h kernel check"] = launches
+    if launches != len(HERD_SHAPES) * (HERD_REPS + 1):
+        raise SystemExit(f"3h: {launches} herd-kernel launches for "
+                         f"{len(HERD_SHAPES) * (HERD_REPS + 1)} calls")
+    torch.cuda.empty_cache()
+    (n0, w0, ms0, b0, p0), (n1, w1, ms1, b1, p1) = rows
+    return {
+        "name": "positions (herd k*G)",
+        "route": "cuda",
+        "source": "kangaroo_torch/csrc/herd_kernel.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": worst,
+        "ms": ms1, "plain_ms": p1, "bound_ms": b1, "bound_by": "operations",
+        "library_ms": None,
+        "shape": f"{n1} lanes x {w1} windows + key",
+        "ms_batch_key": ms0, "plain_ms_batch_key": p0,
+        "bound_ms_batch_key": b0,
+        "shape_batch_key": f"{n0} lanes x {w0} windows + key",
+    }
 
 
 def _tables(dev, sym=False):
@@ -449,9 +576,7 @@ def phase_solve(fixture, key, sym=False, tag="5 solve"):
         str(Path(__file__).resolve().parent / "fixtures" / fixture))
     opts = SolverOptions(nb_kangaroo=N_FULL, nb_run=0, seed=SEED,
                          device="cuda", quiet=True, symmetry=sym)
-    jump_cuda.LAUNCHES = 0
-    jump_cuda.SYM_LAUNCHES = 0
-    jump_ref.CALLS = 0
+    _reset_counts()
     t = time.time()
     solver = KangarooSolver(cfg, opts)
     res = solver.solve(0)
@@ -478,12 +603,15 @@ def phase_solve(fixture, key, sym=False, tag="5 solve"):
     launches, other = (sym_k, plain_k) if sym else (plain_k, sym_k)
     if launches == 0 or other != 0 or plain_calls != 0:
         raise SystemExit("the solve did not run through its walk kernel")
+    # the herd, then one launch a tick with dead lanes
+    _herd_count(f"{tag} {fixture}")
     return launches, st
 
 
 def _reset_counts():
-    from kangaroo_torch.ops import jump_cuda, jump_ref
+    from kangaroo_torch.ops import herd_cuda, jump_cuda, jump_ref
 
+    herd_cuda.LAUNCHES = 0
     jump_cuda.LAUNCHES = 0
     jump_cuda.SYM_LAUNCHES = 0
     jump_ref.CALLS = 0
@@ -1740,6 +1868,8 @@ def phase_stats(sym):
     torch.cuda.synchronize()
     wall = time.time() - t
     launches = _read_counts(sym, tag)
+    # a herd a key, then one launch a tick with dead lanes
+    _herd_count(tag, least=len(rows))
     sqrt_n = stats_batch.sqrt_range(cfg)
     m, se = stats_summary.mean_se([r.count / sqrt_n for r in rows])
     model = rows[0].expected / sqrt_n
@@ -1852,7 +1982,8 @@ import json, sys
 sys.path.insert(0, ".")
 import chip_smoke
 launches, mean, err = chip_smoke.phase_stats(True)
-print(json.dumps({"launches": launches, "mean": mean, "err": err}))
+print(json.dumps({"launches": launches, "mean": mean, "err": err,
+                  "herd": chip_smoke.HERD_LAUNCHES}))
 """
 
 
@@ -1883,6 +2014,7 @@ def phase_stats_pair():
         raise SystemExit(f"11 STATS -sym failed (exit {child.returncode}): "
                          f"{lines[-1] if lines else ''}")
     sym = json.loads(lines[-1])
+    HERD_LAUNCHES.update(sym["herd"])
     print(f"[11 ratio] plain/-sym mean ops/sqrtN {plain[1] / sym['mean']:.4f}"
           f" against sqrt(2) {math.sqrt(2):.4f}", flush=True)
     if not sym["mean"] < plain[1]:
@@ -2006,6 +2138,7 @@ def main():
     name, smi = phase_device()
     dev = torch.device("cuda", 0)
     timed("2", phase_build)
+    herd_entry = timed("3h", phase_herd, dev)
     herd, herd_s = _herd(N_FULL, dev)
     cmp_plain = timed("3", phase_compare, herd, dev, PLAIN_WINDOWS)
     ms, bound, by = timed("4", phase_full, herd, herd_s, dev)
@@ -2073,7 +2206,8 @@ def main():
                         "9s in64 -sym client": net_sym,
                         "10a two shards": sym_shard_a,
                         "11 STATS -sym": sym_stats}),
-    ] + _probe_entries(probe_rows, probe_counts, cmp_probes)
+    ] + [herd_entry] + _probe_entries(probe_rows, probe_counts, cmp_probes)
+    herd_entry["launches_by_path"] = HERD_LAUNCHES
     kernels[0]["ms_two_shards_10a"] = shard_a_ms
     kernels[1]["ms_two_shards_10a"] = sym_shard_a_ms
     print(f"[12 seconds] " + ", ".join(f"{k} {v:.1f}"

@@ -26,9 +26,15 @@ device_distance and true_distance) are vectorized over lanes in
 `utils.packing` (device_dist_limbs, true_dist_limbs), where the work
 files use them.
 
+The positions (|d| G, negated where d is n - |d|, plus keyToSearch on
+wild lanes) are `ops.herd_cuda.positions`: on a card one launch of the
+CUDA kernel `kt_herd_kernel`, on the CPU its plain version, `ops.ec`'s
+batched curve ops.
+
 create_herd and create_herd_shards record the spans `herd.draws` (the
-host's draws) and `herd.kG` (the positions' k*G, one a shard: launches
-on a card, which run on after the span).
+host's draws) and `herd.kG` (the positions' k*G, one a shard: the
+inputs' copies and the kernel's launch on a card, which runs on after
+the span).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from ..constants import WILD
+from ..ops import ec, herd_cuda
 from ..utils import rng as rng_mod, spans
 from . import curve
 
@@ -92,29 +99,6 @@ def _limbs(words: np.ndarray, rows: int) -> np.ndarray:
     return out
 
 
-def _positions(ks: torch.Tensor, windows: int, neg: torch.Tensor,
-               wild_mask: torch.Tensor, key_point: Optional[curve.PointA]):
-    """px/py start positions: d*G, plus keyToSearch on wild lanes.
-
-    ks holds |d| (d or n - d, whichever is smaller), so the scalar
-    multiply runs over the `windows` bytes the range needs instead of
-    all 32 (ec.signed_mult_base).  The points are exact, so they equal
-    the JAX package's 32-window d*G.
-    """
-    from ..ops import ec
-
-    sx, sy, _ = ec.signed_mult_base(ks, neg, windows)
-    if key_point is None:
-        return sx, sy
-    # p_zero all False: a degenerate d == 0 lane runs the plain formula
-    # against (0,0), like the reference's vector AddDirect, which only
-    # special-cases p1 == 0 (SECP256K1.cpp:296-298)
-    none = torch.zeros((ks.shape[1],), dtype=torch.bool, device=ks.device)
-    ax, ay = ec.add_point(sx, sy, none, key_point)
-    wm = wild_mask[None, :]
-    return torch.where(wm, ax, sx), torch.where(wm, ay, sy)
-
-
 def herd_from_draws(
     r: np.ndarray,
     types: np.ndarray,
@@ -142,8 +126,6 @@ def herd_from_draws(
     # |d| with d the mod-n start distance: r, or |r - off| on wild lanes
     neg = wild & below
     mag = np.where(wild[:, None], np.where(below[:, None], under, above), r)
-    from ..ops import ec
-
     ks = _limbs(mag, 16)
     windows = ec.windows_for(ks)
     ks = torch.from_numpy(ks).to(device)
@@ -153,8 +135,12 @@ def herd_from_draws(
         key_point = None
     if not wild.any():
         key_point = None
-    px, py = _positions(ks, windows, torch.from_numpy(neg).to(device),
-                        torch.from_numpy(wild).to(device), key_point)
+    # |d| G over the `windows` bytes the range needs (d or n - d,
+    # whichever is smaller: n - d lanes are negated), keyToSearch added
+    # on wild lanes
+    px, py = herd_cuda.positions(ks, torch.from_numpy(neg).to(device),
+                                 torch.from_numpy(wild).to(device),
+                                 key_point, windows)
     if not symmetry:
         return px, py, torch.from_numpy(_limbs(r, 8)).to(device)
     from ..ops import field

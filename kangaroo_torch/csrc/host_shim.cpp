@@ -1,12 +1,14 @@
-// Host build of the walk kernel's arithmetic and per-thread body, and
-// of the probe kernels' bodies, for the CPU: g++ compiles field.cuh,
-// walk.cuh and probes.cuh (the same code nvcc builds into
-// jump_kernel.cu and probe_kernels.cu) and kangaroo_torch/ops/
-// host_kernel.py binds these C entry points with ctypes.  Field
+// Host build of the walk kernel's arithmetic and per-thread body, of
+// the herd kernel's body and of the probe kernels' bodies, for the CPU:
+// g++ compiles field.cuh, walk.cuh, herd.cuh and probes.cuh (the same
+// code nvcc builds into jump_kernel.cu, herd_kernel.cu and
+// probe_kernels.cu) and kangaroo_torch/ops/host_kernel.py binds these C
+// entry points with ctypes.  Field
 // elements are passed as arrays of n elements of 8 uint32 words each
 // (4 words for distances).
 #include <vector>
 
+#include "herd.cuh"
 #include "probes.cuh"
 
 extern "C" {
@@ -96,6 +98,25 @@ int kt_walk_host(int32_t* px, int32_t* py, int32_t* d, const int32_t* jx,
             else
                 kt::walk_thread<false>(a, tb, (size_t)b, t, sc);
         }
+    return 0;
+}
+
+// The herd kernel's launch, run thread by thread on the host: same
+// arguments as kt_herd_positions in herd_kernel.cu, no stream.  Returns
+// 0, or 1 for arguments the kernel refuses.
+int kt_herd_host(const int32_t* mag, const uint8_t* neg,
+                 const uint8_t* wild, const uint32_t* table, int32_t* px,
+                 int32_t* py, int n, int windows, int group,
+                 const uint32_t* key) {
+    kt::HerdArgs a;
+    if (!kt::herd_args(a, mag, neg, wild, table, px, py, n, windows, group,
+                       key))
+        return 1;
+    std::vector<uint32_t> acc(8 * kt::MAX_GROUP);
+    auto* sc = reinterpret_cast<uint32_t (*)[8]>(acc.data());
+    const size_t lanes = (size_t)kt::THREADS * group;
+    for (size_t b = 0; b < ((size_t)n + lanes - 1) / lanes; ++b)
+        for (int t = 0; t < kt::THREADS; ++t) kt::herd_thread(a, b, t, sc);
     return 0;
 }
 

@@ -5,8 +5,13 @@ These cover the herd's start positions: a masked batched affine add and
 the batched fixed-window scalar multiplication, the vectorized
 counterparts of the reference's Secp256K1::AddDirect /
 ComputePublicKeys (SECP256K1.cpp:59-113,238-322).  In the JAX package
-they are XLA code (kangaroo_tpu/ops/ec.py), so tensor ops on the device
-the herd lives on are their port.
+they are XLA code (kangaroo_tpu/ops/ec.py).
+
+On a card the herd's positions come from the CUDA kernel
+`kt_herd_kernel` (`ops/herd_cuda.py`); the composition here is its
+plain version (`herd_cuda.positions_plain`), the path for CPU tensors,
+and the path of the work files' `-wss` herd rebuild (`io/backup.py`)
+and `-wcheck` (`core/check.py`), which call it directly on any device.
 """
 
 from __future__ import annotations

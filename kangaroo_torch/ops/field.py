@@ -5,9 +5,9 @@ limbs, least-significant limb first, across N lanes -- the JAX
 package's layout, so the tests compare like with like.  Every op widens
 to int64 inside (a 16x16-bit product needs 32 unsigned bits) and
 returns int32.  These are the plain versions of the walk kernel's
-arithmetic (`csrc/field.cuh`): the CPU path, the herd's scalar multiply
-on any device, and the reference the kernel is compared with on the
-card.
+arithmetic (`csrc/field.cuh`): the CPU path, the plain version of the
+herd kernel's scalar multiply (`ops/ec.py`), and the reference the
+kernels are compared with on the card.
 
 Values are relaxed (any representative < 2^256) unless a function says
 canonical (< p); p = 2^256 - c with c = 2^32 + 977.

@@ -1,10 +1,11 @@
 """The kernels' own C++ bodies built for the CPU with g++.
 
-`csrc/host_shim.cpp` compiles `field.cuh`, `walk.cuh` and `probes.cuh`
--- the code nvcc builds into the walk kernel and the probe kernels --
-for the host and exposes it through a plain C interface: the field ops
-over arrays of 8-word elements, the walk kernel's launch run thread by
-thread (`kt_walk_host`), and the probe kernels' launches
+`csrc/host_shim.cpp` compiles `field.cuh`, `walk.cuh`, `herd.cuh` and
+`probes.cuh` -- the code nvcc builds into the walk kernel, the herd
+kernel and the probe kernels -- for the host and exposes it through a
+plain C interface: the field ops over arrays of 8-word elements, the
+walk kernel's and the herd kernel's launches run thread by thread
+(`kt_walk_host`, `kt_herd_host`), and the probe kernels' launches
 (`kt_*_host`).  `-check` runs the walk body through it on the CPU, and
 the tests hold it against the JAX package and the plain versions.  The
 library is built into `build/kangaroo_torch/` at first use.
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.build import build_shared
-from . import jump_cuda
+from . import herd_cuda, jump_cuda
 from .probe_ref import (DELTA_VARIANTS, F32_OPS, FIELD_OPS, INV_VARIANTS,
                         RAW_OPS)
 
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "kt_fe_neg_n": ([_P, _P, _I], None),
     "kt_neg_u128_n": ([_P, _I], None),
     "kt_walk_host": ([_P] * 7 + [_I] * 3 + [_P] * 6, _I),
+    "kt_herd_host": ([_P] * 6 + [_I] * 3 + [_P], _I),
     "kt_field_chain_host": ([_I] + [_P] * 4 + [_I, _I], _I),
     "kt_raw_chain_host": ([_I, _I, _P, _I, _I], _I),
     "kt_delta_host": ([_I, _I] + [_P] * 7 + [_I] * 3 + [_P] * 5, _I),
@@ -62,7 +64,8 @@ def build() -> Path:
     return build_shared(
         "libkangaroo_host_shim.so", [_CSRC / "host_shim.cpp"],
         ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"],
-        deps=[_CSRC / "field.cuh", _CSRC / "walk.cuh", _CSRC / "probes.cuh"],
+        deps=[_CSRC / "field.cuh", _CSRC / "walk.cuh", _CSRC / "herd.cuh",
+              _CSRC / "probes.cuh"],
         timeout=300,
     )
 
@@ -110,6 +113,21 @@ def walk(px, py, d, jx, jy, jd, dp_masks, nb_run: int = 16,
          symclass.data_ptr() if symmetry else None, scratch.data_ptr())
     out = (px, py, d, count, dpx, dpd, step)
     return out + (symclass,) if symmetry else out
+
+
+def herd_positions(mag, neg, wild, key_point, windows: int, group: int):
+    """The herd kernel's body on the host at G = group lanes a thread,
+    with the contract of `herd_cuda.positions` on CPU tensors; returns
+    (px, py)."""
+    n = herd_cuda.check_args(mag, neg, wild, windows)
+    table = herd_cuda.table_words()
+    key = herd_cuda.key_words(key_point)
+    px = torch.empty((16, n), dtype=torch.int32)
+    py = torch.empty_like(px)
+    call("kt_herd_host", mag.data_ptr(), neg.data_ptr(), wild.data_ptr(),
+         table.ctypes.data, px.data_ptr(), py.data_ptr(), n, windows, group,
+         None if key is None else key.ctypes.data)
+    return px, py
 
 
 def to_words(limbs: torch.Tensor) -> np.ndarray:

@@ -1,6 +1,6 @@
-"""The CUDA walk kernel and the probe kernels against their plain
-versions, on the card, and the work files' save, resume and -wcheck
-there.
+"""The CUDA walk kernel, the herd kernel and the probe kernels against
+their plain versions, on the card, and the work files' save, resume and
+-wcheck there.
 
 Needs a CUDA card (the kernel has no CPU mode) and skips without one.
 Imports only the port, so it runs on a machine without JAX:
@@ -436,3 +436,92 @@ def test_two_shards_on_one_card_equal_one_launch(card, symmetry):
     for name, a, b in zip(NAMES + ("symclass",), got, want):
         assert torch.equal(a, b), name
     assert int(got[3].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 8192, 150001])
+@pytest.mark.parametrize("windows", [1, 5, 11, 16])
+def test_herd_kernel_matches_plain_on_card(card, windows, n):
+    """kt_herd_kernel against herd_cuda's plain version on the card, on
+    the edge lanes of tests/test_torch_herd_kernel.py (|d| = 0, zero low,
+    middle and top windows, neg, wild and tame lanes) and random ones;
+    keyToSearch at infinity on the 63-lane herds.  The lane counts take
+    G = 1 (1, 63, 8192 lanes) and G = 8 (150001: a ragged tail)."""
+    from kangaroo_torch.ops import herd_cuda
+    from tests.test_torch_herd_kernel import KEY, herd_lanes
+
+    mag, neg, wild = herd_lanes(n, windows, seed=n + windows,
+                                   device=card)
+    key = None if n == 63 else KEY
+    launches = herd_cuda.LAUNCHES
+    got = herd_cuda.positions(mag, neg, wild, key, windows)
+    assert herd_cuda.LAUNCHES == launches + 1
+    want = herd_cuda.positions_plain(mag, neg, wild, key, windows)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_herd_kernel_matches_plain_on_a_search_herd(card):
+    """A search's herd less 3 lanes at 11 windows: G = 64, 512 blocks,
+    the last one ragged."""
+    from kangaroo_torch.ops import herd_cuda
+    from tests.test_torch_herd_kernel import KEY, herd_lanes
+
+    n = (1 << 22) - 3
+    mag, neg, wild = herd_lanes(n, 11, seed=22, device=card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert herd_cuda.group_for(n, sms) == 64
+    got = herd_cuda.positions(mag, neg, wild, KEY, 11)
+    want = herd_cuda.positions_plain(mag, neg, wild, KEY, 11)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_herd_wrapper_rejects_what_the_kernel_does_not_take(card):
+    from kangaroo_torch.ops import herd_cuda
+    from tests.test_torch_herd_kernel import KEY, herd_lanes
+
+    mag, neg, wild = herd_lanes(64, 5, seed=3, device=card)
+    launches = herd_cuda.LAUNCHES
+    for args, match in (
+            ((mag, neg.cpu(), wild), "on cuda"),
+            ((mag.long(), neg, wild), "int32"),
+            ((mag, neg, wild.int()), "bool"),
+            ((mag[:8].contiguous(), neg, wild), "contiguous"),
+            ((mag.t().contiguous().t(), neg, wild), "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            herd_cuda.positions(*args, KEY, 5)
+    with pytest.raises(ValueError, match="windows"):
+        herd_cuda.positions(mag, neg, wild, KEY, 33)
+    assert herd_cuda.LAUNCHES == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_herd_on_card_equals_cpu_herd(card, symmetry):
+    """create_herd on the card, and create_herd_shards in 2 shards of one
+    card (each on its own stream), equal create_herd on the CPU lane for
+    lane: the kernel on the main path, the plain version on the CPU."""
+    from kangaroo_torch.ops import herd_cuda
+    from kangaroo_torch.parallel import sharding
+
+    n, rp = 3 * 8192 + 2, 40
+    args = (n, rp, (1 << 39) - 5, curve.mul(0xDEADBEEF7), 1)
+    want = herd.create_herd(*args, MT19937(17), device="cpu",
+                            symmetry=symmetry)
+    launches = herd_cuda.LAUNCHES
+    one = herd.create_herd(*args, MT19937(17), device=card,
+                           symmetry=symmetry)
+    shards = sharding.make_shards([card, card], n)
+    assert len(shards) == 2 and shards[0].stream != shards[1].stream
+    parts = herd.create_herd_shards(*args[:4], shards, args[4],
+                                    MT19937(17), symmetry=symmetry)
+    sharding.synchronize(shards)
+    torch.cuda.synchronize()
+    assert herd_cuda.LAUNCHES == launches + 3
+    two = [torch.cat([p[k] for p in parts], dim=-1) for k in range(3)]
+    for got in (one, two):
+        for name, a, b in zip(("px", "py", "d"), got, want):
+            assert torch.equal(a.cpu(), b), name
