@@ -32,9 +32,9 @@ CUDA kernel `kt_herd_kernel`, on the CPU its plain version, `ops.ec`'s
 batched curve ops.
 
 create_herd and create_herd_shards record the spans `herd.draws` (the
-host's draws) and `herd.kG` (the positions' k*G, one a shard: the
-inputs' copies and the kernel's launch on a card, which runs on after
-the span).
+host's draws) and `herd.kG` (the positions' k*G, one a shard, tagged
+with the shard's index: the inputs' copies and the kernel's launch on a
+card, which runs on after the span).
 """
 
 from __future__ import annotations
@@ -199,8 +199,8 @@ def create_herd_shards(
         r = draw_start_words(nb, range_power, rng, symmetry)
     types = (np.arange(nb) + first_type) % 2
     out = []
-    for s in shards:
-        with s.walk(), spans.span("herd.kG"):
+    for i, s in enumerate(shards):
+        with s.walk(), spans.span("herd.kG", shard=i):
             out.append(herd_from_draws(
                 r[s.lo:s.hi], types[s.lo:s.hi], width_div2, key_point,
                 device=s.device, symmetry=symmetry))

@@ -106,8 +106,8 @@ class SolveStats:
     # ... and waiting for a save still running (spans `save.wait`)
     save_wait: float = 0.0
     # per drained tick, each shard's seconds in its compaction and copy,
-    # the wait for its window's end included (spans `compact.wait` and
-    # `compact`)
+    # the wait for its window's end included, in shard order (spans
+    # `compact.wait` and `compact`, tagged with the shard's index)
     compact_s: List[Tuple[float, ...]] = field(default_factory=list)
 
 
@@ -364,12 +364,15 @@ class KangarooSolver:
         returns None (kangaroo_tpu/core/solver.py:1222-1245).
 
         Spans (utils/spans.py, one serial a call): `solve` holds
-        `jump_table`, `herd` (`herd.draws`, `herd.kG` inside), one
-        `tick` a loop iteration with each shard's `compact.wait` and
-        `compact`, `launch`, `drain` (`reset` inside) and `save`
-        (`save.wait`), and `finish` (the final `drain`, `sync`, the
-        herd's gather and the last save's join).  SolveStats's timers
-        are read from them."""
+        `jump_table`, `herd` (`herd.draws`, `herd.kG` inside, one a
+        shard), one `tick` a loop iteration with each shard's
+        `compact.wait` and `compact`, `launch`, `drain` (`reset` inside)
+        and `save` (`save.wait`), and `finish` (the final `drain`,
+        `sync`, the herd's gather and the last save's join).
+        `herd.kG`, `compact.wait` and `compact` carry their shard's
+        index (`shard`), every other span None.  SolveStats's timers are
+        read from them.  The call's counter `dps` counts the records
+        each drain hands to the table or the sink."""
         with spans.span("solve"):
             return self._solve(key_idx, progress, max_ticks, dp_sink,
                                save_hook)
@@ -466,12 +469,12 @@ class KangarooSolver:
         tick_fn = sharding.make_sharded_jump_steps(shards, nb_run, n_slots,
                                                    sym)
 
-        def pull(sh, wins, done):
-            """One shard's DPs of a tick's windows under the watchdog,
+        def pull(i, sh, wins, done):
+            """Shard i's DPs of a tick's windows under the watchdog,
             in one read: the wait for `done` (an event recorded after
             the shard's last window; None on the CPU), then
-            sharding.compact.  Spans `compact.wait` and `compact`;
-            their seconds go to stats.compact_s."""
+            sharding.compact.  Spans `compact.wait` and `compact`,
+            tagged i; their seconds go to stats.compact_s."""
             def read():
                 if done is not None:
                     done.synchronize()
@@ -481,8 +484,8 @@ class KangarooSolver:
             t = spans.now()
             waited, out = self._host_read(read)
             end = spans.now()
-            spans.add("compact.wait", t, waited)
-            spans.add("compact", waited, end)
+            spans.add("compact.wait", t, waited, shard=i)
+            spans.add("compact", waited, end, shard=i)
             return out, (end - t) * 1e-9
 
         def merged(pulled):
@@ -547,6 +550,7 @@ class KangarooSolver:
                 rec, lanes = encode_records(blk)
                 m = rec.shape[0]
                 if dp_sink is not None:
+                    spans.count("dps", m)
                     # the wire's kIdx column carries the (global) origin
                     # lane
                     wire = np.empty((m, 40), dtype=np.uint8)
@@ -560,6 +564,7 @@ class KangarooSolver:
                 # resets (and their RNG draws) come in the same order
                 for off in range(0, m, DRAIN_CHUNK):
                     part = min(DRAIN_CHUNK, m - off)
+                    spans.count("dps", part)
                     _, dup_idx, dup_total, colls = (
                         self.hash_table.add_batch_raw(
                             rec[off:off + part].tobytes(), part))
@@ -619,8 +624,8 @@ class KangarooSolver:
                         self.stats.count += n * nb_run * kw
                         tick += 1
                         pulled = None if pending is None else [
-                            pull(sh, w, e) for sh, w, e
-                            in zip(shards, pending, pending_done)]
+                            pull(i, sh, w, e) for i, (sh, w, e) in
+                            enumerate(zip(shards, pending, pending_done))]
                         with spans.span("launch"):
                             pending = [[] for _ in shards]
                             for _ in range(kw):
@@ -660,8 +665,8 @@ class KangarooSolver:
                 # herd's gather and the last save's join
                 finishing.enter_context(spans.span("finish"))
                 if result is None and not sink_end and pending is not None:
-                    drain([pull(sh, w, e) for sh, w, e
-                           in zip(shards, pending, pending_done)])
+                    drain([pull(i, sh, w, e) for i, (sh, w, e) in
+                           enumerate(zip(shards, pending, pending_done))])
                 with spans.span("sync") as sync:
                     if cuda:
                         # the last dispatched tick is in stats.count:
