@@ -32,6 +32,19 @@ Phases:
      (2^22 lanes, plain and -sym) and the solves and STATS batches of
      phases 5, 5s and 11 then count their own herd-kernel launches and
      fail on none;
+  3c. compaction kernels vs their plain version (ops/compact_cuda.py):
+     a tick of a batch40 key (8192 lanes, 4 steps, dp 4, the solver's 6
+     slots) and of a puzzle85 search (2^22 lanes, 1024 steps, dp 16, 4
+     slots), DP counts drawn at the tick's rate; one kt_compact call a
+     tick, queued with its copy to pinned memory, read after its event:
+     lost and records bit-equal (tolerance 0), and once more through a
+     block of 5 records, which spills; the queue, its kernels and copy
+     timed with CUDA events over COMPACT_REPS ticks, beside the byte
+     bound and the plain version's host-clocked time over as many
+     calls after a warm one; the solves, work-file solves and
+     resumes, clients, sharded, -nwin, weak-scaling and STATS phases
+     then count their own compaction calls and fail unless there is
+     one a shard and tick;
   3. plain kernel vs plain walk at the main path's shape: the kernel
      walks a 2^22-lane herd (512 blocks of 128 threads x 64 lanes) once
      with slot overflow (dp 6, 2 slots, 128 steps) and once as the
@@ -227,6 +240,16 @@ HERD_SHAPES = ((STATS_NK, 5, 40), (N_FULL, 11, 85))
 HERD_REPS = 20
 # the herd kernel's launches by path (_herd_count), for the kernels line
 HERD_LAUNCHES = {}
+# phase 3c: (lanes, slots, steps, dp) of a batch40 tick and of a
+# puzzle85 search's, and the timed ticks of each
+COMPACT_SHAPES = ((STATS_NK, 6, STATS_NBRUN, STATS_DP), (N_FULL, 4, 1024, 16))
+COMPACT_REPS = 50
+# the compaction's kt_compact calls by path (_compact_count), for the
+# kernels line
+COMPACT_LAUNCHES = {}
+# weak_scaling.run_sizes's timed drains a size; each shard compacts once
+# more, untimed, before them
+WEAK_REPS = 3
 
 
 def phase_device():
@@ -248,17 +271,18 @@ def phase_build():
     probe kernels' ptxas reports and each walk kernel's SASS hash."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from kangaroo_torch.ops import herd_cuda, jump_cuda, probe_cuda
+    from kangaroo_torch.ops import (compact_cuda, herd_cuda, jump_cuda,
+                                    probe_cuda)
     from kangaroo_torch.utils import sass
     from kangaroo_torch.utils.build import BUILD_DIR
 
     t = time.time()
-    with ThreadPoolExecutor(3) as ex:
-        walk_f, probe_f, herd_f = (ex.submit(jump_cuda.build),
-                                   ex.submit(probe_cuda.build),
-                                   ex.submit(herd_cuda.build))
+    with ThreadPoolExecutor(4) as ex:
+        walk_f, probe_f, herd_f, compact_f = (
+            ex.submit(jump_cuda.build), ex.submit(probe_cuda.build),
+            ex.submit(herd_cuda.build), ex.submit(compact_cuda.build))
         lib, probe_lib = walk_f.result(), probe_f.result()
-        herd_lib = herd_f.result()
+        herd_lib, compact_lib = herd_f.result(), compact_f.result()
     log = (BUILD_DIR / f"{lib.name}.log").read_text()
     kinds = {"ILb0E": "plain:", "ILb1E": "symmetry:"}
     ptx = [next((v for k, v in kinds.items() if k in ln), ln.strip())
@@ -298,6 +322,14 @@ def phase_build():
           f"stores/loads {r.get('spill_stores')}/{r.get('spill_loads')} B, "
           f"{r.get('stack')} B stack (prefix products up to "
           f"{herd_cuda.MAX_GROUP - 1} x 32 B)", flush=True)
+    rep = sass.ptxas_report(
+        (BUILD_DIR / f"{compact_lib.name}.log").read_text())
+    cnames = sass.demangle(sorted(rep))
+    print("[2 build] compaction kernels: " + "; ".join(
+        f"{cnames[k].split('(')[0].replace('void ', '')}: {r.get('regs')} "
+        f"registers, spill {r.get('spill_stores')}/{r.get('spill_loads')} "
+        f"B, smem {r.get('smem')} B" for k, r in sorted(rep.items())),
+        flush=True)
     rep = sass.ptxas_report((BUILD_DIR / f"{probe_lib.name}.log").read_text())
     pnames = sass.demangle(sorted(rep))
     spills = [pnames[k] for k, r in rep.items()
@@ -345,6 +377,21 @@ def _herd_count(path, least=1, exact=None):
         raise SystemExit(f"{path}: {k} herd-kernel launches, "
                          f"{exact if exact is not None else f'>= {least}'} "
                          f"wanted")
+    return k
+
+
+def _compact_count(path, exact):
+    """The compaction's kt_compact calls since _reset_counts, kept under
+    `path` for the kernels line and printed; fails unless they are
+    `exact` (one a shard and tick: a path that compacted with torch ops
+    on the card shows 0)."""
+    from kangaroo_torch.ops import compact_cuda
+
+    k = COMPACT_LAUNCHES[path] = compact_cuda.LAUNCHES
+    print(f"[compact launches] {path}: {k}", flush=True)
+    if k != exact or k == 0:
+        raise SystemExit(f"{path}: {k} compaction-kernel calls, {exact} "
+                         f"(ticks x shards) wanted")
     return k
 
 
@@ -426,6 +473,91 @@ def phase_herd(dev):
         "ms_batch_key": ms0, "plain_ms_batch_key": p0,
         "bound_ms_batch_key": b0,
         "shape_batch_key": f"{n0} lanes x {w0} windows + key",
+    }
+
+
+def _compact_windows(n, slots, steps, dp, dev):
+    """One window of n lanes: DP counts drawn from Poisson(steps / 2^dp),
+    random 16-bit slot limbs and steps."""
+    rs = np.random.RandomState(SEED + n)
+    arrays = (rs.poisson(steps / float(1 << dp), n).astype(np.int32),
+              rs.randint(0, 1 << 16, (slots, 10, n)).astype(np.int32),
+              rs.randint(0, 1 << 16, (slots, 8, n)).astype(np.int32),
+              rs.randint(0, steps, (slots, n)).astype(np.int32))
+    return [tuple(torch.from_numpy(a).to(dev) for a in arrays)]
+
+
+def phase_compact(dev):
+    """kt_compact_kernel (with its count and scan launches and the copy)
+    against its plain version at COMPACT_SHAPES; returns the kernels
+    line's entry."""
+    from kangaroo_torch.ops import compact_cuda
+
+    rows, start = [], compact_cuda.LAUNCHES
+    for n, slots, steps, dp in COMPACT_SHAPES:
+        wins = _compact_windows(n, slots, steps, dp, dev)
+        # the first call also loads the process's first torch ops
+        lost, want = compact_cuda.compact_plain(wins, slots, steps, 0)
+        torch.cuda.synchronize()
+        t = time.time()
+        for _ in range(COMPACT_REPS):
+            compact_cuda.compact_plain(wins, slots, steps, 0)
+        torch.cuda.synchronize()
+        plain_ms = (time.time() - t) * 1e3 / COMPACT_REPS
+        cap = compact_cuda.capacity(n, steps, 1, dp, slots)
+        blocks = compact_cuda.Blocks(dev, n, slots, 1, cap)
+        for b in (blocks, compact_cuda.Blocks(dev, n, slots, 1, 5)):
+            q = b.queue(wins, slots, steps, 0)
+            torch.cuda.current_stream(dev).record_event().synchronize()
+            got_lost, got = q.read()
+            if got_lost != lost or not np.array_equal(got, want):
+                raise SystemExit(f"compaction kernel differs from its plain "
+                                 f"version at {n} lanes, capacity {b.cap}")
+            if q.spilled != (len(want) > b.cap):
+                raise SystemExit(f"compaction at {n} lanes: spilled "
+                                 f"{q.spilled} with {len(want)} records and "
+                                 f"capacity {b.cap}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(COMPACT_REPS):
+            blocks.queue(wins, slots, steps, 0)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms = ev[0].elapsed_time(ev[1]) / COMPACT_REPS
+        t = time.time()
+        for _ in range(COMPACT_REPS):
+            q = blocks.queue(wins, slots, steps, 0)
+            torch.cuda.current_stream(dev).record_event().synchronize()
+            q.read()
+        host_ms = (time.time() - t) * 1e3 / COMPACT_REPS
+        bound = compact_cuda.bound_ms(n, 1, len(want))
+        print(f"[3c compact] {n} lanes x {slots} slots, {steps} steps at dp "
+              f"{dp}: {len(want)} records, {lost} lost, capacity {cap}; "
+              f"kernels and copy {ms:.4f} ms, queue to read on the host "
+              f"{host_ms:.4f} ms, bound {bound:.4f} ms (bytes, "
+              f"{100 * bound / ms:.1f} %), plain {plain_ms:.2f} ms; "
+              f"bit-equal, the spill too", flush=True)
+        rows.append((n, slots, ms, host_ms, bound, plain_ms, len(want)))
+        del wins, blocks
+    launches = compact_cuda.LAUNCHES - start
+    if launches != len(COMPACT_SHAPES) * (2 + 2 * COMPACT_REPS):
+        raise SystemExit(f"3c: {launches} compaction calls for "
+                         f"{len(COMPACT_SHAPES) * (2 + 2 * COMPACT_REPS)}")
+    torch.cuda.empty_cache()
+    (n0, s0, ms0, h0, b0, p0, m0), (n1, s1, ms1, h1, b1, p1, m1) = rows
+    return {
+        "name": "compact (a tick's DP compaction)",
+        "route": "cuda",
+        "source": "kangaroo_torch/csrc/compact_kernel.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": 0,
+        "ms": ms1, "host_ms": h1, "plain_ms": p1, "bound_ms": b1,
+        "bound_by": "bytes", "library_ms": None,
+        "shape": f"{n1} lanes x {s1} slots, {m1} records",
+        "ms_batch_tick": ms0, "host_ms_batch_tick": h0,
+        "plain_ms_batch_tick": p0, "bound_ms_batch_tick": b0,
+        "shape_batch_tick": f"{n0} lanes x {s0} slots, {m0} records",
     }
 
 
@@ -605,12 +737,14 @@ def phase_solve(fixture, key, sym=False, tag="5 solve"):
         raise SystemExit("the solve did not run through its walk kernel")
     # the herd, then one launch a tick with dead lanes
     _herd_count(f"{tag} {fixture}")
+    _compact_count(f"{tag} {fixture}", st.ticks * len(solver.shards))
     return launches, st
 
 
 def _reset_counts():
-    from kangaroo_torch.ops import herd_cuda, jump_cuda, jump_ref
+    from kangaroo_torch.ops import compact_cuda, herd_cuda, jump_cuda, jump_ref
 
+    compact_cuda.LAUNCHES = 0
     herd_cuda.LAUNCHES = 0
     jump_cuda.LAUNCHES = 0
     jump_cuda.SYM_LAUNCHES = 0
@@ -680,6 +814,7 @@ def phase_work(sym, fixture="in64.txt", key=IN64_KEY, n=N_FULL,
         wall = time.time() - t
         launches_save = _read_counts(sym, "the saving solve")
         st = s.stats
+        _compact_count(f"{tag} saving solve", st.ticks * len(s.shards))
         if res is not None or st.saves != st.ticks:
             raise SystemExit(f"{tag}: the 2-tick solve solved, or did not "
                              f"save at each tick")
@@ -759,6 +894,7 @@ def phase_work(sym, fixture="in64.txt", key=IN64_KEY, n=N_FULL,
         wall = time.time() - t
         launches = _read_counts(sym, "the resumed solve")
         st2 = s2.stats
+        _compact_count(f"{tag} resume", st2.ticks * len(s2.shards))
         print(f"[{tag}] resumed with -i: key "
               f"{hex(res.private_key) if res else None}; wall {wall:.2f} s "
               f"(restore {st2.herd_time:.2f} s, {st2.ticks} ticks); count "
@@ -935,6 +1071,7 @@ def phase_net(sym, standalone, sent, fixture="in64.txt", key=IN64_KEY):
         launches = _read_counts(sym, tag)
     rep = reports[0]
     st = rep.solver.stats
+    _compact_count(tag, st.ticks * len(rep.solver.shards))
     stalls = np.array(rep.sink_stalls) * 1e3
     got = _server_key(out)
     print(f"[{tag}] {fixture} at {N_FULL} lanes, server dp {DP_FULL}, "
@@ -1656,6 +1793,7 @@ def phase_shard_solve(plain_st):
     wall = time.time() - t
     launches = _read_counts(False, tag)
     st = solver.stats
+    _compact_count(tag, st.ticks * len(solver.shards))
     per_shard = list(zip(*st.compact_s))
     rate, rate5 = st.count / st.time, plain_st.count / plain_st.time
     print(f"[{tag}] in64.txt at {N_FULL} lanes in {len(solver.shards)} "
@@ -1705,6 +1843,8 @@ def phase_nwin():
     wall = time.time() - t
     launches = _read_counts(False, tag)
     st = solver.stats
+    # one call a tick for both windows
+    _compact_count(tag, st.ticks * len(solver.shards))
     print(f"[{tag}] in64.txt at {N_FULL} lanes, -nbrun 512 -nwin 2, dp "
           f"{solver.dp_size}, slots {solver.n_slots}: key "
           f"{hex(res.private_key) if res else None}; wall {wall:.2f} s "
@@ -1793,8 +1933,11 @@ def phase_weak_scaling(compact_10b):
 
         _reset_counts()
         results, devices = weak_scaling.run_sizes(
-            sizes=(1, 2), device=names, on_first_tick=keep, **kw)
+            sizes=(1, 2), device=names, on_first_tick=keep, reps=WEAK_REPS,
+            **kw)
         launches += _read_counts(False, tag)
+        _compact_count(tag, (1 + WEAK_REPS)
+                       * sum(r["devices"] for r in results))
         nb_run, slots = results[0]["nb_run"], results[0]["slots"]
         tabs = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in kept[0][2]]
@@ -1870,6 +2013,7 @@ def phase_stats(sym):
     launches = _read_counts(sym, tag)
     # a herd a key, then one launch a tick with dead lanes
     _herd_count(tag, least=len(rows))
+    _compact_count(tag, sum(r.ticks for r in rows))
     sqrt_n = stats_batch.sqrt_range(cfg)
     m, se = stats_summary.mean_se([r.count / sqrt_n for r in rows])
     model = rows[0].expected / sqrt_n
@@ -2139,6 +2283,7 @@ def main():
     dev = torch.device("cuda", 0)
     timed("2", phase_build)
     herd_entry = timed("3h", phase_herd, dev)
+    compact_entry = timed("3c", phase_compact, dev)
     herd, herd_s = _herd(N_FULL, dev)
     cmp_plain = timed("3", phase_compare, herd, dev, PLAIN_WINDOWS)
     ms, bound, by = timed("4", phase_full, herd, herd_s, dev)
@@ -2206,8 +2351,10 @@ def main():
                         "9s in64 -sym client": net_sym,
                         "10a two shards": sym_shard_a,
                         "11 STATS -sym": sym_stats}),
-    ] + [herd_entry] + _probe_entries(probe_rows, probe_counts, cmp_probes)
+    ] + [herd_entry, compact_entry] + _probe_entries(probe_rows, probe_counts,
+                                                     cmp_probes)
     herd_entry["launches_by_path"] = HERD_LAUNCHES
+    compact_entry["launches_by_path"] = COMPACT_LAUNCHES
     kernels[0]["ms_two_shards_10a"] = shard_a_ms
     kernels[1]["ms_two_shards_10a"] = sym_shard_a_ms
     print(f"[12 seconds] " + ", ".join(f"{k} {v:.1f}"

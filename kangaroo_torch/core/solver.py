@@ -6,8 +6,9 @@ on the devices in lane shards (parallel/sharding.py: -devices, one
 shard and stream per device, or two on one card); each tick is
 windows_per_tick launches of the walk kernel over a window of nb_run
 jumps on every shard (-nwin).  Each shard's DP slots are compacted on
-its device and copied to the host in one read, bounded by the device
-watchdog (device_timeout); the DPs go into the native hash table in
+its device behind its last window of the tick and copied to pinned host
+memory, read once by the host, bounded by the device watchdog
+(device_timeout); the DPs go into the native hash table in
 walk order with global lane indices, and collisions are resolved
 exactly like the reference.  The symmetry walk (`-sym`) carries each
 lane's class beside the herd, signed device distances and a key
@@ -372,7 +373,8 @@ class KangarooSolver:
         `herd.kG`, `compact.wait` and `compact` carry their shard's
         index (`shard`), every other span None.  SolveStats's timers are
         read from them.  The call's counter `dps` counts the records
-        each drain hands to the table or the sink."""
+        each drain hands to the table or the sink, `compact.spill` the
+        pulls whose records outran their pinned block on a card."""
         with spans.span("solve"):
             return self._solve(key_idx, progress, max_ticks, dp_sink,
                                save_hook)
@@ -468,13 +470,16 @@ class KangarooSolver:
         wd2_sym = wd2 if sym else None
         tick_fn = sharding.make_sharded_jump_steps(shards, nb_run, n_slots,
                                                    sym)
+        for sh in shards:
+            sharding.compact_blocks(sh, n_slots, kw, nb_run, dp_size)
 
         def pull(i, sh, wins, done):
-            """Shard i's DPs of a tick's windows under the watchdog,
-            in one read: the wait for `done` (an event recorded after
-            the shard's last window; None on the CPU), then
+            """Shard i's DPs of a tick under the watchdog, in one read:
+            the wait for `done` (an event recorded after the shard's
+            compaction and its copy; None on the CPU), then
             sharding.compact.  Spans `compact.wait` and `compact`,
-            tagged i; their seconds go to stats.compact_s."""
+            tagged i; their seconds go to stats.compact_s.  A read whose
+            records outran the pinned block counts `compact.spill`."""
             def read():
                 if done is not None:
                     done.synchronize()
@@ -486,6 +491,8 @@ class KangarooSolver:
             end = spans.now()
             spans.add("compact.wait", t, waited, shard=i)
             spans.add("compact", waited, end, shard=i)
+            if getattr(wins, "spilled", False):  # a card's queued tick
+                spans.count("compact.spill", 1)
             return out, (end - t) * 1e-9
 
         def merged(pulled):
@@ -590,18 +597,18 @@ class KangarooSolver:
                         self._reset_lanes(states, resets, rng)
                 return False
 
-        # Pipelined loop.  Each iteration compacts and copies every
-        # shard's tick T-1 DPs, shard by shard (each waits only for its
-        # own shard's T-1 windows), launches tick T's windows on every
-        # shard at once, then drains T-1 on the host while T runs on the
-        # card.  (Compacting T-1 after T's launch would wait for T: a
-        # one-wave walk holds every SM's register file, so no compaction
-        # kernel runs beside it; launching each shard right after its
-        # own compaction lets the shards drift apart, so that one runs
-        # alone on a shared card.)  Dead-lane resets therefore land one
-        # tick late, exactly as in the JAX solver's loop (dispatch T,
-        # then drain T-1), and the same class of slack as the
-        # reference's asynchronous GPU readback (GPUEngine.cu:607-677).
+        # Pipelined loop.  Each iteration reads every shard's tick T-1
+        # DPs, shard by shard (each waits only for its own shard's T-1
+        # windows, compaction and copy, which were queued behind them),
+        # launches tick T's windows on every shard at once with each
+        # shard's compaction behind its last window, then drains T-1 on
+        # the host while T runs on the card.  (Launching each shard
+        # right after its own read lets the shards drift apart, so that
+        # one runs alone on a shared card.)  Dead-lane resets therefore
+        # land one tick late, exactly as in the JAX solver's loop
+        # (dispatch T, then drain T-1), and the same class of slack as
+        # the reference's asynchronous GPU readback
+        # (GPUEngine.cu:607-677).
         pending = pending_done = None
         self.stats.count = self.offset_count
         t0 = spans.now()
@@ -636,6 +643,12 @@ class KangarooSolver:
                                     if sym:
                                         st[3] = out[7]
                                     w.append(out[3:7])
+                            # each shard's compaction and copy behind its
+                            # last window, before the tick's event
+                            pending = [
+                                sharding.queue_compact(sh, w, n_slots,
+                                                       nb_run)
+                                for sh, w in zip(shards, pending)]
                             pending_done = [
                                 None if sh.stream is None
                                 else sh.stream.record_event()

@@ -1,13 +1,15 @@
 // Host build of the walk kernel's arithmetic and per-thread body, of
-// the herd kernel's body and of the probe kernels' bodies, for the CPU:
-// g++ compiles field.cuh, walk.cuh, herd.cuh and probes.cuh (the same
-// code nvcc builds into jump_kernel.cu, herd_kernel.cu and
+// the herd and compaction kernels' bodies and of the probe kernels'
+// bodies, for the CPU: g++ compiles field.cuh, walk.cuh, herd.cuh,
+// compact.cuh and probes.cuh (the same code nvcc builds into
+// jump_kernel.cu, herd_kernel.cu, compact_kernel.cu and
 // probe_kernels.cu) and kangaroo_torch/ops/host_kernel.py binds these C
 // entry points with ctypes.  Field
 // elements are passed as arrays of n elements of 8 uint32 words each
 // (4 words for distances).
 #include <vector>
 
+#include "compact.cuh"
 #include "herd.cuh"
 #include "probes.cuh"
 
@@ -118,6 +120,107 @@ int kt_herd_host(const int32_t* mag, const uint8_t* neg,
     for (size_t b = 0; b < ((size_t)n + lanes - 1) / lanes; ++b)
         for (int t = 0; t < kt::THREADS; ++t) kt::herd_thread(a, b, t, sc);
     return 0;
+}
+
+// The compaction kernels' gather over every launch of windows, run
+// thread by thread on the host: records of ranks [r0, r1) to out.
+static int compact_gather_host(const void* const* count,
+                               const void* const* dpx,
+                               const void* const* dpd,
+                               const void* const* step, int windows, int n,
+                               int slots, int nb_run, long long lo,
+                               void* scratch, long long r0, long long r1,
+                               int32_t* out) {
+    kt::CompactArgs a;
+    std::vector<int> c2(kt::C_THREADS * kt::C_LANES);
+    for (int w0 = 0; w0 < windows; w0 += kt::C_MAX_WINDOWS) {
+        if (!kt::compact_args(a, count, dpx, dpd, step, w0, windows, n,
+                              slots, nb_run, lo, scratch))
+            return 1;
+        for (int j = 0; j < a.group; ++j)
+            for (size_t tile = 0; tile < a.tiles; ++tile) {
+                for (int t = 0; t < kt::C_THREADS; ++t)
+                    kt::thread_slots(a, j, tile, t, &c2[t * kt::C_LANES]);
+                for (int s = 0; s < slots; ++s) {
+                    const size_t e = kt::entry(a, w0 + j, s, tile);
+                    const int64_t cnt = kt::tile_count(a)[e];
+                    if (cnt == 0) break;
+                    int64_t rank = kt::tile_off(a)[e];
+                    if (rank >= r1 || rank + cnt <= r0) continue;
+                    for (int t = 0; t < kt::C_THREADS; ++t) {
+                        const int* c = &c2[t * kt::C_LANES];
+                        kt::thread_records(a, j, tile, t, s, c, rank, r0,
+                                           r1, out);
+                        rank += kt::slot_hits(c, s);
+                    }
+                }
+            }
+    }
+    return 0;
+}
+
+// The compaction kernels' launches, run thread by thread on the host:
+// same arguments as kt_compact in compact_kernel.cu, without the copy
+// to the host and the stream.  A block's sums and scans over its
+// threads go in thread order.  Returns 0, or 1 for arguments the
+// kernels refuse.
+int kt_compact_host(const void* const* count, const void* const* dpx,
+                    const void* const* dpd, const void* const* step,
+                    int windows, int n, int slots, int nb_run, long long lo,
+                    void* scratch, int32_t* out, long long cap) {
+    kt::CompactArgs a;
+    if (cap < 0 || !out ||
+        !kt::compact_args(a, count, dpx, dpd, step, 0, windows, n, slots,
+                          nb_run, lo, scratch))
+        return 1;
+    // 1. count
+    for (int w0 = 0; w0 < windows; w0 += kt::C_MAX_WINDOWS) {
+        kt::compact_args(a, count, dpx, dpd, step, w0, windows, n, slots,
+                         nb_run, lo, scratch);
+        for (int j = 0; j < a.group; ++j)
+            for (size_t tile = 0; tile < a.tiles; ++tile) {
+                std::vector<int64_t> hits(slots, 0);
+                int64_t lost = 0;
+                for (int t = 0; t < kt::C_THREADS; ++t) {
+                    int c2[kt::C_LANES];
+                    lost += kt::thread_slots(a, j, tile, t, c2);
+                    for (int s = 0; s < slots; ++s)
+                        hits[s] += kt::slot_hits(c2, s);
+                }
+                for (int s = 0; s < slots; ++s)
+                    kt::tile_count(a)[kt::entry(a, w0 + j, s, tile)] =
+                        hits[s];
+                kt::tile_lost(a)[(size_t)(w0 + j) * a.tiles + tile] = lost;
+            }
+    }
+    // 2. scan
+    int64_t m = 0, lost = 0;
+    for (int t = 0; t < kt::C_SCAN_THREADS; ++t) {
+        size_t b, e;
+        kt::scan_share(kt::entries(a), t, kt::C_SCAN_THREADS, b, e);
+        kt::run_offsets(a, b, e, m);
+        m += kt::run_sum(kt::tile_count(a), b, e);
+        kt::scan_share((size_t)windows * a.tiles, t, kt::C_SCAN_THREADS, b,
+                       e);
+        lost += kt::run_sum(kt::tile_lost(a), b, e);
+    }
+    kt::write_header(out, lost, m);
+    // 3. gather
+    return compact_gather_host(count, dpx, dpd, step, windows, n, slots,
+                               nb_run, lo, scratch, 0, cap,
+                               out + kt::REC_WORDS);
+}
+
+// The records of ranks [r0, r1) of the last kt_compact_host over the
+// same windows and scratch, to `out`: kt_compact_rest on the host.
+int kt_compact_rest_host(const void* const* count, const void* const* dpx,
+                         const void* const* dpd, const void* const* step,
+                         int windows, int n, int slots, int nb_run,
+                         long long lo, void* scratch, long long r0,
+                         long long r1, int32_t* out) {
+    if (r0 < 0 || r1 < r0 || !out) return 1;
+    return compact_gather_host(count, dpx, dpd, step, windows, n, slots,
+                               nb_run, lo, scratch, r0, r1, out);
 }
 
 }  // extern "C"

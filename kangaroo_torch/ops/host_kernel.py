@@ -1,14 +1,16 @@
 """The kernels' own C++ bodies built for the CPU with g++.
 
-`csrc/host_shim.cpp` compiles `field.cuh`, `walk.cuh`, `herd.cuh` and
-`probes.cuh` -- the code nvcc builds into the walk kernel, the herd
-kernel and the probe kernels -- for the host and exposes it through a
-plain C interface: the field ops over arrays of 8-word elements, the
-walk kernel's and the herd kernel's launches run thread by thread
-(`kt_walk_host`, `kt_herd_host`), and the probe kernels' launches
-(`kt_*_host`).  `-check` runs the walk body through it on the CPU, and
-the tests hold it against the JAX package and the plain versions.  The
-library is built into `build/kangaroo_torch/` at first use.
+`csrc/host_shim.cpp` compiles `field.cuh`, `walk.cuh`, `herd.cuh`,
+`compact.cuh` and `probes.cuh` -- the code nvcc builds into the walk
+kernel, the herd kernel, the compaction kernels and the probe kernels
+-- for the host and exposes it through a plain C interface: the field
+ops over arrays of 8-word elements, the walk kernel's, the herd
+kernel's and the compaction kernels' launches run thread by thread
+(`kt_walk_host`, `kt_herd_host`, `kt_compact_host`), and the probe
+kernels' launches (`kt_*_host`).  `-check` runs the walk body through
+it on the CPU, and the tests hold it against the JAX package and the
+plain versions.  The library is built into `build/kangaroo_torch/` at
+first use.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from ..utils.build import build_shared
-from . import herd_cuda, jump_cuda
+from . import compact_cuda, herd_cuda, jump_cuda
 from .probe_ref import (DELTA_VARIANTS, F32_OPS, FIELD_OPS, INV_VARIANTS,
                         RAW_OPS)
 
@@ -32,6 +34,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 _SIGNATURES = {
     "kt_lane_quantum": ([], _I),
@@ -50,6 +53,9 @@ _SIGNATURES = {
     "kt_neg_u128_n": ([_P, _I], None),
     "kt_walk_host": ([_P] * 7 + [_I] * 3 + [_P] * 6, _I),
     "kt_herd_host": ([_P] * 6 + [_I] * 3 + [_P], _I),
+    "kt_compact_host": ([_P] * 4 + [_I] * 4 + [_L, _P, _P, _L], _I),
+    "kt_compact_rest_host": ([_P] * 4 + [_I] * 4 + [_L, _P, _L, _L, _P],
+                             _I),
     "kt_field_chain_host": ([_I] + [_P] * 4 + [_I, _I], _I),
     "kt_raw_chain_host": ([_I, _I, _P, _I, _I], _I),
     "kt_delta_host": ([_I, _I] + [_P] * 7 + [_I] * 3 + [_P] * 5, _I),
@@ -65,7 +71,7 @@ def build() -> Path:
         "libkangaroo_host_shim.so", [_CSRC / "host_shim.cpp"],
         ["g++", "-O2", "-shared", "-fPIC", "-std=c++17"],
         deps=[_CSRC / "field.cuh", _CSRC / "walk.cuh", _CSRC / "herd.cuh",
-              _CSRC / "probes.cuh"],
+              _CSRC / "compact.cuh", _CSRC / "probes.cuh"],
         timeout=300,
     )
 
@@ -128,6 +134,31 @@ def herd_positions(mag, neg, wild, key_point, windows: int, group: int):
          table.ctypes.data, px.data_ptr(), py.data_ptr(), n, windows, group,
          None if key is None else key.ctypes.data)
     return px, py
+
+
+def compact(wins, slots: int, nb_run: int, lo: int = 0,
+            cap: Optional[int] = None):
+    """The compaction kernels' body on the host, with the contract of
+    `compact_cuda.Queued.read` on a tick's CPU windows (count, dpx, dpd,
+    step each): a block of 1 + cap rows (cap: every slot cell) is
+    written as the card writes its device block, and the ranks beyond
+    cap come from the spill's gather.  Returns (lost, block)."""
+    n, _ = compact_cuda.check_windows(wins, slots)
+    ptrs = compact_cuda.window_pointers(wins)
+    cap = slots * n * len(wins) if cap is None else cap
+    scratch = torch.empty(compact_cuda.scratch_words(n, slots, len(wins)),
+                          dtype=torch.int64)
+    rows = np.full((1 + cap, compact_cuda.RECORD_WORDS), -1, dtype=np.int32)
+    args = (len(wins), n, slots, nb_run, lo, scratch.data_ptr())
+    call("kt_compact_host", *ptrs, *args, rows.ctypes.data, cap)
+
+    def rest(r0, r1):
+        out = np.full((r1 - r0, compact_cuda.RECORD_WORDS), -1,
+                      dtype=np.int32)
+        call("kt_compact_rest_host", *ptrs, *args, r0, r1, out.ctypes.data)
+        return out
+
+    return compact_cuda.assemble(rows, cap, rest)
 
 
 def to_words(limbs: torch.Tensor) -> np.ndarray:

@@ -6,7 +6,8 @@ logical herd over the lane axis of a 1-D device mesh (shard_map) and
 replicates the jump table and the DP masks.  Here a shard is a lane
 range [lo, hi) of the herd on one device with a CUDA stream of its own,
 which carries all of the shard's work: its launches, the compaction of
-its DP slots, its dead-lane resets and snapshots.  So the shards'
+its DP slots (queued behind its last window of a tick, read from pinned
+memory), its dead-lane resets and snapshots.  So the shards'
 launches run at once, across cards, or side by side on one card when a
 device list repeats it.  The hot loop has no collective: every shard's
 DPs drain to the one host table with their global lane indices, so
@@ -25,17 +26,19 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..ops import jump_cuda
+from ..ops import compact_cuda, jump_cuda
 
 
 @dataclass
 class Shard:
     """Lanes [lo, hi) of the herd on `device`; the stream is None on the
-    CPU."""
+    CPU.  `blocks` holds the shard's compaction buffers on a card
+    (compact_blocks)."""
     lo: int
     hi: int
     device: torch.device
     stream: Optional["torch.cuda.Stream"] = None
+    blocks: Optional[compact_cuda.Blocks] = None
 
     def walk(self):
         """The shard's device and stream made current: all of the
@@ -153,35 +156,58 @@ def synchronize(shards: Sequence[Shard]) -> None:
             s.stream.synchronize()
 
 
-def compact(shard: Shard, wins, slots: int, nb_run: int):
-    """One shard's DPs of a tick's windows, compacted on its device on
-    its stream (after the windows, before the shard's next launch) and
-    copied to the host in one read: the solver's per-tick drain
-    (core/solver.py), which parallel/weak_scaling.py times.
+def compact_blocks(shard: Shard, slots: int, windows: int, nb_run: int,
+                   dp_size: int) -> None:
+    """Give a card's shard its compaction buffers (`shard.blocks`, a
+    compact_cuda.Blocks) for a tick of `windows` windows of nb_run steps,
+    `slots` slots, at dp_size: made on the first call for the shape,
+    before any launch of the loop (an allocation between two streams'
+    launches keeps them from running at once), and kept across solve()
+    calls; a new shape replaces them.  Nothing on the CPU."""
+    if shard.stream is None:
+        return
+    n = shard.hi - shard.lo
+    cap = compact_cuda.capacity(n, nb_run, windows, dp_size, slots)
+    b = shard.blocks
+    if b is None or b.key != (n, slots, windows, cap):
+        shard.blocks = None  # the old pinned blocks go first
+        shard.blocks = compact_cuda.Blocks(shard.device, n, slots, windows,
+                                           cap)
 
-    wins holds each window's (count, dpx, dpd, step) in launch order.
-    Occupied slot cells from each window's count; nonzero gives the
-    exact hit count (it waits for the windows); the payload is gathered
-    into one (m, 20) int32 block of [x limbs 0..9 | d limbs 0..7 | step
-    within the tick (window * nb_run + step) | global lane].  The lost
-    count is exact: count - min(count, slots).  Returns (lost, block)."""
+
+def queue_compact(shard: Shard, wins, slots: int, nb_run: int):
+    """Queue the compaction of a tick's windows (each (count, dpx, dpd,
+    step), in launch order) on the shard's stream, right behind its last
+    window, into `shard.blocks` (compact_blocks): on a card the
+    compact_cuda.Queued tick, which `compact` reads once the stream has
+    passed it; on the CPU the windows themselves, which `compact`
+    compacts then."""
+    if shard.stream is None:
+        return wins
+    if shard.blocks is None:
+        raise ValueError("a card's shard needs compact_blocks before its "
+                         "first queue_compact")
     with shard.walk():
-        m = shard.hi - shard.lo
-        slot_iota = torch.arange(slots, device=shard.device)[:, None]
-        lost, blks = 0, []
-        for w, (count, dpx, dpd, step) in enumerate(wins):
-            c2 = torch.clamp(count, max=slots)
-            lost = lost + (count - c2).sum()
-            cells = (slot_iota < c2[None, :]).flatten().nonzero()
-            cells = cells.squeeze(1)
-            s_idx, lanes = cells // m, cells % m
-            blks.append(torch.cat([
-                dpx[s_idx, :, lanes], dpd[s_idx, :, lanes],
-                (step[s_idx, lanes] + w * nb_run)[:, None],
-                (lanes + shard.lo)[:, None].to(torch.int32),
-            ], dim=1))
-        blk = blks[0] if len(blks) == 1 else torch.cat(blks)
-        return int(lost), blk.cpu().numpy()
+        return shard.blocks.queue(wins, slots, nb_run, shard.lo)
+
+
+def compact(shard: Shard, wins, slots: int, nb_run: int):
+    """One shard's DPs of a tick's windows, read to the host: the
+    solver's per-tick pull (core/solver.py), which
+    parallel/weak_scaling.py times.
+
+    wins is what `queue_compact` returned: on a card a queued tick,
+    whose lost count and records are read from its pinned block; on the
+    CPU the windows, compacted here by compact_cuda.compact_plain.
+    Returns (lost, block): lost exact, block (m, 20) int32 of [x limbs
+    0..9 | d limbs 0..7 | step within the tick (window * nb_run + step)
+    | global lane]."""
+    if isinstance(wins, compact_cuda.Queued):
+        return wins.read()  # pinned host memory: no device or stream
+    if shard.stream is not None:
+        raise ValueError("a card's windows are compacted through "
+                         "queue_compact")
+    return compact_cuda.compact_plain(wins, slots, nb_run, shard.lo)
 
 
 def make_sharded_jump_steps(shards: Sequence[Shard], nb_run: int,

@@ -15,11 +15,13 @@ shard count:
     (run_sizes(passes=P) times the sizes in P turns and takes each
     size's mean, so that on a host shared with other work every size
     samples the same stretch of time);
-  - drain seconds per tick: the solver's own per-shard compaction
-    (sharding.compact: count, occupied cells, gather, one host copy) of
-    the last tick's DP slots, timed shard by shard after the kernel
-    timing and one untimed compaction per shard (the first in a process
-    loads its kernels: ~0.3 s on a card); the slowest shard's seconds,
+  - drain seconds per tick: the solver's own per-shard compaction of
+    the last tick's DP slots (sharding.queue_compact, the wait for the
+    shard's stream, sharding.compact: on a card the compaction kernels,
+    their copy to pinned memory and its read; on the CPU the plain
+    version), timed shard by shard after the kernel timing and one
+    untimed compaction per shard (the first in a process loads its
+    kernels); the slowest shard's seconds,
     with each shard's beside them (the quantity of the solver's
     stats.compact_s);
   - the rate (M jumps/s) in all and per shard, and the weak-scaling
@@ -189,13 +191,21 @@ def run_sizes(sizes=None, lanes_per_dev=None, nb_run=None, reps=3,
         # drain: the solver's compaction of each shard's DP slots of the
         # last tick, at its actual hit rate
         nd, outs = r["nd"], r.pop("outs")
-        for s, o in zip(r["shards"], outs):  # settles its kernels' load
-            sharding.compact(s, [o[3:7]], slots, nb_run)
+        for s in r["shards"]:
+            sharding.compact_blocks(s, slots, 1, nb_run, dp_bits)
+
+        def pull(s, o):
+            q = sharding.queue_compact(s, [o[3:7]], slots, nb_run)
+            sharding.synchronize([s])
+            return sharding.compact(s, q, slots, nb_run)
+
+        for s, o in zip(r["shards"], outs):  # loads the kernels
+            pull(s, o)
         per = [0.0] * nd
         for _ in range(reps):
             for i, (s, o) in enumerate(zip(r["shards"], outs)):
                 t = time.perf_counter()
-                sharding.compact(s, [o[3:7]], slots, nb_run)
+                pull(s, o)
                 per[i] += time.perf_counter() - t
         per = [x / reps for x in per]
         dps = sum(int(o[3].clamp(max=slots).sum()) for o in outs)
