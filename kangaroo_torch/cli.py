@@ -247,7 +247,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from .core.config import parse_config_file
     from .core import curve
-    from .core.solver import KangarooSolver, SolverOptions
+    from .core.solver import KangarooSolver, SolverOptions, plan
 
     if nk <= 0:
         # one full wave of the walk kernel per card
@@ -301,15 +301,12 @@ def main(argv: Optional[List[str]] = None) -> int:
           + ", ".join(str(s.device) for s in shards))
     if symmetry:
         print("Symmetry: on (walk over classes {P,-P})")
-    suggested_dp = solver.suggest_dp(nk)
     if opts.dp_size < 0:
-        print(f"Suggested DP: {suggested_dp}")
-        opts.dp_size = solver.balanced_dp(
-            nk, suggested=suggested_dp,
-            dp_cost=dp_cost if dp_cost >= 0 else solver.DP_HOST_COST,
-        )
-        if opts.dp_size != suggested_dp:
-            print(f"Drain-balanced DP: {opts.dp_size}")
+        dp_plan = plan(solver)
+        print(f"Suggested DP: {dp_plan.suggested}")
+        opts.dp_size = dp_plan.dp_size
+        if dp_plan.dp_size != dp_plan.suggested:
+            print(f"Drain-balanced DP: {dp_plan.dp_size}")
     exp_op, exp_ram, _ = solver.compute_expected(float(opts.dp_size), nk)
     print(f"Expected operations: 2^{math.log2(exp_op):.2f}")
     print(f"Expected RAM: {exp_ram:.1f}MB")

@@ -153,11 +153,6 @@ def get_public_key_hex(p: PointA, compressed: bool = True) -> str:
     return ("04" + format(p.x, "064X") + format(p.y, "064X")).upper()
 
 
-def mod_neg_order(d: int) -> int:
-    """(-d) mod n (reference: Int::ModNegK1order, IntMod.cpp:1265)."""
-    return (-d) % N_ORDER
-
-
 def batch_add(p1: List[PointA], p2: List[PointA]) -> List[PointA]:
     """Vector affine add accepting p1[i] == identity.
 

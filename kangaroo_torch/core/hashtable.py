@@ -26,6 +26,7 @@ from typing import Iterator, Tuple
 import numpy as np
 
 from ..constants import HASH_MASK, HASH_SIZE, N_ORDER
+from ..utils import packing
 
 _MASK128 = (1 << 128) - 1
 _MASK126 = (1 << 126) - 1
@@ -60,6 +61,30 @@ def calc_dist_and_type(d128: int) -> Tuple[int, int]:
     if sign:
         return (N_ORDER - mag) % N_ORDER, ktype
     return mag, ktype
+
+
+def encode_records(blk: np.ndarray, width_div2: int, symmetry: bool):
+    """A tick's DPs, (m, 20) int32 rows [x limbs 0..9 | device d limbs
+    0..7 | step | global lane] (parallel/sharding.compact), as records
+    {u32 h, x128, d128} (add_batch_raw): convert of x, the lane's true
+    distance mod n (d, or d - width_div2 on wild lanes; with symmetry
+    the signed 128-bit d) and its parity.  Returns ((m, 36) uint8
+    records, int64 lanes) in walk order (step, then lane)."""
+    order = np.lexsort((blk[:, 19], blk[:, 18]))
+    blk = blk[order]
+    lanes = blk[:, 19].astype(np.int64)
+    m = len(lanes)
+    xl = blk[:, 0:10].astype(np.uint32)
+    lo, hi = packing.dist_words(blk[:, 10:18].T)
+    words = np.empty((m, 2), dtype="<u8")
+    words[:, 0], words[:, 1] = packing.d128_words(lo, hi, lanes, width_div2,
+                                                  symmetry)
+    rec = np.empty((m, 36), dtype=np.uint8)
+    hbk = xl[:, 8] | ((xl[:, 9] & 0x3) << 16)
+    rec[:, 0:4] = hbk.astype("<u4").view(np.uint8).reshape(m, 4)
+    rec[:, 4:20] = xl[:, :8].astype("<u2").view(np.uint8).reshape(m, 16)
+    rec[:, 20:36] = words.view(np.uint8)
+    return rec, lanes
 
 
 class NativeHashTable:

@@ -29,7 +29,9 @@ writes the herd alone, to a local HEADK file or through `save_hook`
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 import math
 import threading
 import time
@@ -42,11 +44,11 @@ import torch
 from ..constants import HASH_SIZE, N_ORDER, TAME
 from ..io import backup
 from ..parallel import sharding
-from ..utils import packing, rng as rng_mod, spans
+from ..utils import rng as rng_mod, spans
 from . import curve, herd as herd_mod
 from .collision import collision_check
 from .config import ProblemConfig
-from .hashtable import calc_dist_and_type, make_hash_table
+from .hashtable import calc_dist_and_type, encode_records, make_hash_table
 from .jumptable import create_jump_table
 
 
@@ -170,12 +172,14 @@ class DeviceHangError(RuntimeError):
     """A device->host read exceeded the watchdog's bound."""
 
 
-def windows_per_tick(opts, n_slots: int, auto_window: bool) -> int:
+def windows_per_tick(opts, n_slots: int, auto_window: bool,
+                     nb_run: Optional[int] = None) -> int:
     """Launch windows per tick: opts.windows_per_tick, or with 0 the JAX
     solver's auto rule (kangaroo_tpu/core/solver.py:390-411): only when
-    the window is auto too, whole windows until a tick carries ~4096
-    steps, at most 16, and at most ~2 GB of one tick's DP slots (x 10,
-    d 8 and step rows per slot over the whole herd)."""
+    the window is auto too, whole windows of nb_run steps (default
+    opts.nb_run) until a tick carries ~4096 steps, at most 16, and at
+    most ~2 GB of one tick's DP slots (x 10, d 8 and step rows per slot
+    over the whole herd)."""
     from ..ops import jump_ref
 
     kw = opts.windows_per_tick
@@ -183,9 +187,57 @@ def windows_per_tick(opts, n_slots: int, auto_window: bool) -> int:
         return kw
     if not auto_window:
         return 1
-    kw = max(1, min(16, 4096 // opts.nb_run))
+    kw = max(1, min(16, 4096 // (nb_run or opts.nb_run)))
     slot_bytes = n_slots * (jump_ref.DPX_ROWS + 8 + 1) * 4 * opts.nb_kangaroo
     return max(1, min(kw, int(2e9 / max(1, slot_bytes))))
+
+
+Plan = collections.namedtuple("Plan", "dp_size suggested nb_run n_slots "
+                              "windows_per_tick capped_loss")
+
+
+def plan(solver: "KangarooSolver") -> Plan:
+    """solve()'s DP size and tick shape, opts left as they are: dp -1 is
+    balanced_dp at dp_cost (-1: DP_HOST_COST) over the `suggested` DP;
+    nb_run 0 the longest window that helps (64-1024 steps), halved while
+    its slots exceed MAX_SLOTS; an explicit window caps the slots
+    instead, `capped_loss` DPs expected lost a window."""
+    opts = solver.opts
+    nk = opts.nb_kangaroo
+    dp, suggested = opts.dp_size, None
+    if dp < 0:
+        suggested = solver.suggest_dp(nk)
+        dp = solver.balanced_dp(
+            nk, suggested=suggested,
+            dp_cost=(opts.dp_cost if opts.dp_cost >= 0.0
+                     else solver.DP_HOST_COST))
+    auto_window = opts.nb_run == 0
+    nb_run = (max(64, min(1024, 1 << max(0, dp - 3))) if auto_window
+              else opts.nb_run)
+    n_slots = slots_for_window(nb_run, dp, nk)
+    while n_slots > MAX_SLOTS and auto_window and nb_run > 8:
+        nb_run //= 2
+        n_slots = slots_for_window(nb_run, dp, nk)
+    loss = None
+    if n_slots > MAX_SLOTS:
+        n_slots = MAX_SLOTS
+        loss = nk * poisson_tail(nb_run / float(1 << dp), MAX_SLOTS + 1)
+    return Plan(dp, suggested, nb_run, n_slots,
+                windows_per_tick(opts, n_slots, auto_window, nb_run), loss)
+
+
+@dataclass
+class _Walk:
+    """The state one solve() call's steps share."""
+    states: list           # one [px, py, d, symclass] a shard
+    rng: rng_mod.MT19937
+    tables: list           # one (jx, jy, jd, dp masks) a shard
+    tick_fn: Callable      # sharding.make_sharded_jump_steps
+    dp_sink: Optional[Callable]
+    pending: Optional[list] = None  # the last tick's pulls, one a shard
+    ticks: int = 0
+    result: object = None
+    sink_end: bool = False  # the sink reported the search's end
 
 
 def resolve_device(name: str) -> torch.device:
@@ -376,47 +428,23 @@ class KangarooSolver:
         each drain hands to the table or the sink, `compact.spill` the
         pulls whose records outran their pinned block on a card."""
         with spans.span("solve"):
-            return self._solve(key_idx, progress, max_ticks, dp_sink,
-                               save_hook)
+            self.init_search_key(key_idx)
+            self._enter_key(key_idx)
+            w = self._start(dp_sink)
+            result = self._run(w, progress, max_ticks, save_hook)
+            if result is not None and self.opts.out_file:
+                self._output(result)
+            return result
 
-    def _solve(self, key_idx, progress, max_ticks, dp_sink, save_hook):
-        from ..ops import jump_cuda, jump_ref
-
-        opts = self.opts
-        shards = self.shards
-        cuda = self.device.type == "cuda"
-        sym = opts.symmetry
-        self.init_search_key(key_idx)
-        dp_size = opts.dp_size
-        if dp_size < 0:
-            dp_size = self.balanced_dp(
-                opts.nb_kangaroo,
-                dp_cost=(opts.dp_cost if opts.dp_cost >= 0.0
-                         else self.DP_HOST_COST),
-            )
-        self.dp_size = dp_size
-        auto_window = opts.nb_run == 0
-        if auto_window:
-            # as long as possible (host overhead amortizes over the
-            # window), floor 64; small dp raises the slot count instead
-            opts.nb_run = max(64, min(1024, 1 << max(0, dp_size - 3)))
-        n_slots = slots_for_window(opts.nb_run, dp_size, opts.nb_kangaroo)
-        while n_slots > MAX_SLOTS and auto_window and opts.nb_run > 8:
-            opts.nb_run //= 2
-            n_slots = slots_for_window(opts.nb_run, dp_size,
-                                       opts.nb_kangaroo)
-        if n_slots > MAX_SLOTS:
-            # explicit -nbrun pinned the window: cap and report
-            n_slots = MAX_SLOTS
-            if not opts.quiet:
-                lam = opts.nb_run / float(1 << dp_size)
-                exp_loss = opts.nb_kangaroo * poisson_tail(lam, MAX_SLOTS + 1)
-                print(f"Warning: DP capture slots capped at {MAX_SLOTS} "
-                      f"(expected ~{exp_loss:.2g} lost DPs per launch "
-                      f"window); lower -nbrun or raise -d to eliminate loss")
-        self.n_slots = n_slots
-        kw = self.windows_per_tick = windows_per_tick(opts, n_slots,
-                                                      auto_window)
+    def _enter_key(self, key_idx):
+        """plan(), opts.nb_run resolved in place as the JAX solver does,
+        then the table and stats policy of solve()."""
+        (self.dp_size, _, self.opts.nb_run, self.n_slots,
+         self.windows_per_tick, loss) = plan(self)
+        if loss is not None and not self.opts.quiet:
+            print(f"Warning: DP capture slots capped at {MAX_SLOTS} "
+                  f"(expected ~{loss:.2g} lost DPs per launch "
+                  f"window); lower -nbrun or raise -d to eliminate loss")
         same_key = self._active_key_idx == key_idx
         if not self.resumed and not same_key:
             self.hash_table.reset()
@@ -428,19 +456,22 @@ class KangarooSolver:
         if same_key and self.loaded_kangaroos is None:
             self.loaded_kangaroos = self.last_state
         self.stats.expected_ops, _, _ = self.compute_expected(
-            float(dp_size), opts.nb_kangaroo)
+            float(self.dp_size), self.opts.nb_kangaroo)
+
+    def _start(self, dp_sink) -> _Walk:
+        """Jump table (span `jump_table`), RNG, new or restored herd (span
+        `herd`), the sharded window and the compaction buffers."""
+        from ..ops import jump_cuda, jump_ref
+
+        opts, shards, sym = self.opts, self.shards, self.opts.symmetry
         with spans.span("jump_table"):
             jt = [torch.from_numpy(a.astype(np.int32)) for a in
                   create_jump_table(self.range_power, sym).as_arrays()]
             tables = sharding.replicate(shards, *jt,
-                                        jump_ref.dp_limb_masks(dp_size))
-        rng = rng_mod.MT19937(
-            opts.seed if opts.seed is not None
-            else (time.time_ns() & 0xFFFFFFFF)
-        )
-        n = opts.nb_kangaroo
-        nb_run = opts.nb_run
-        if cuda:
+                                        jump_ref.dp_limb_masks(self.dp_size))
+        rng = rng_mod.MT19937(opts.seed if opts.seed is not None
+                              else (time.time_ns() & 0xFFFFFFFF))
+        if self.device.type == "cuda":
             jump_cuda.load()  # an nvcc build belongs to set-up, not the walk
 
         with spans.span("herd") as herd_span:
@@ -450,11 +481,10 @@ class KangarooSolver:
                 self.loaded_kangaroos = None
             else:
                 herds = herd_mod.create_herd_shards(
-                    n, self.range_power, self.width_div2, self.key_to_search,
-                    shards, TAME, rng, symmetry=sym)
-            # one [px, py, d, symclass] per shard; a new or restored herd
-            # starts normalized, in class 0 (the reference's restore
-            # reallocates symClass zeroed)
+                    opts.nb_kangaroo, self.range_power, self.width_div2,
+                    self.key_to_search, shards, TAME, rng, symmetry=sym)
+            # a new or restored herd starts normalized, in class 0 (the
+            # reference's restore reallocates symClass zeroed)
             states = []
             for sh, h in zip(shards, herds):
                 with sh.walk():
@@ -465,244 +495,198 @@ class KangarooSolver:
             sharding.synchronize(shards)
         self.stats.herd_time = herd_span.seconds
 
-        result = None
-        wd2 = self.width_div2
-        wd2_sym = wd2 if sym else None
-        tick_fn = sharding.make_sharded_jump_steps(shards, nb_run, n_slots,
-                                                   sym)
+        tick_fn = sharding.make_sharded_jump_steps(
+            shards, opts.nb_run, self.n_slots, sym)
         for sh in shards:
-            sharding.compact_blocks(sh, n_slots, kw, nb_run, dp_size)
+            sharding.compact_blocks(sh, self.n_slots, self.windows_per_tick,
+                                    opts.nb_run, self.dp_size)
+        return _Walk(states, rng, tables, tick_fn, dp_sink)
 
-        def pull(i, sh, wins, done):
-            """Shard i's DPs of a tick under the watchdog, in one read:
-            the wait for `done` (an event recorded after the shard's
-            compaction and its copy; None on the CPU), then
-            sharding.compact.  Spans `compact.wait` and `compact`,
-            tagged i; their seconds go to stats.compact_s.  A read whose
-            records outran the pinned block counts `compact.spill`."""
-            def read():
-                if done is not None:
-                    done.synchronize()
-                waited = spans.now()
-                return waited, sharding.compact(sh, wins, n_slots, nb_run)
-
-            t = spans.now()
-            waited, out = self._host_read(read)
-            end = spans.now()
-            spans.add("compact.wait", t, waited, shard=i)
-            spans.add("compact", waited, end, shard=i)
-            if getattr(wins, "spilled", False):  # a card's queued tick
-                spans.count("compact.spill", 1)
-            return out, (end - t) * 1e-9
-
-        def merged(pulled):
-            """The shards' (lost, block)s as one tick's; their seconds
-            as one stats.compact_s entry."""
-            self.stats.compact_s.append(tuple(sec for _, sec in pulled))
-            blks = [blk for (_, blk), _ in pulled]
-            return (sum(lost for (lost, _), _ in pulled),
-                    blks[0] if len(blks) == 1 else np.concatenate(blks))
-
-        def encode_records(blk):
-            """Walk-ordered (m, 36) table records, vectorized.
-
-            Device distances become the reference's sign/type-flagged
-            126-bit D encoding (identical to the per-item true distance
-            -- d, or d - rangeWidth/2 on wild lanes; in symmetry mode
-            the signed 128-bit d itself -- then convert).  Walk order is
-            (step within the tick, global lane), whatever the shards.
-            Returns (records, lanes_in_walk_order).
-            """
-            steps = blk[:, 18].astype(np.int64)
-            lanes = blk[:, 19].astype(np.int64)
-            order = np.lexsort((lanes, steps))  # walk order (step, lane)
-            blk = blk[order]
-            lanes = lanes[order]
-            m = len(lanes)
-            xl = blk[:, 0:10].astype(np.uint32)
-            dl = blk[:, 10:18].astype(np.uint64)
-            hbk = (xl[:, 8] | ((xl[:, 9] & 0x3) << 16)).astype(np.uint32)
-            lo = dl[:, 0] | (dl[:, 1] << np.uint64(16)) | (
-                dl[:, 2] << np.uint64(32)) | (dl[:, 3] << np.uint64(48))
-            hi = dl[:, 4] | (dl[:, 5] << np.uint64(16)) | (
-                dl[:, 6] << np.uint64(32)) | (dl[:, 7] << np.uint64(48))
-            vlo, dhi = packing.d128_words(lo, hi, lanes, wd2, sym)
-            rec = np.empty((m, 36), dtype=np.uint8)
-            rec[:, 0:4] = hbk.astype("<u4").view(np.uint8).reshape(m, 4)
-            rec[:, 4:20] = xl[:, :8].astype("<u2").view(np.uint8).reshape(
-                m, 16)
-            rec[:, 20:28] = vlo.astype("<u8").view(np.uint8).reshape(m, 8)
-            rec[:, 28:36] = dhi.astype("<u8").view(np.uint8).reshape(m, 8)
-            return rec, lanes
-
-        sink_end = False
-
-        def drain(pulled):
-            """Insert one tick's DPs (each shard's pull, merged); resolve
-            collisions; reset dead lanes.  Returns True when the key is
-            solved, or in client mode when the sink reports the end of
-            the search.  Span `drain`."""
-            nonlocal result, sink_end
-            with spans.span("drain"):
-                lost, blk = merged(pulled)
-                if lost:
-                    self.stats.lost += lost
-                    if not self._lost_warned and not opts.quiet:
-                        self._lost_warned = True
-                        print(f"\nWarning, {lost} items lost\nHint: "
-                              f"increase dp bit number or decrease -nbrun "
-                              f"to lower the DP rate per launch window")
-                if not len(blk):
-                    return False
-                rec, lanes = encode_records(blk)
-                m = rec.shape[0]
-                if dp_sink is not None:
-                    spans.count("dps", m)
-                    # the wire's kIdx column carries the (global) origin
-                    # lane
-                    wire = np.empty((m, 40), dtype=np.uint8)
-                    wire[:, 0:4] = lanes.astype("<u4").view(
-                        np.uint8).reshape(m, 4)
-                    wire[:, 4:] = rec
-                    sink_end = bool(dp_sink(wire.tobytes(), m))
-                    return sink_end
-                resets = []
-                # chunked like the JAX solver's drain, so dead-lane
-                # resets (and their RNG draws) come in the same order
-                for off in range(0, m, DRAIN_CHUNK):
-                    part = min(DRAIN_CHUNK, m - off)
-                    spans.count("dps", part)
-                    _, dup_idx, dup_total, colls = (
-                        self.hash_table.add_batch_raw(
-                            rec[off:off + part].tobytes(), part))
-                    self.stats.dead += dup_total
-                    self.stats.dup += dup_total
-                    resets += [int(lanes[off + i]) for i in dup_idx]
-                    for _, d_new, d_old, idx in colls:
-                        d1, t1 = calc_dist_and_type(d_old)
-                        d2, t2 = calc_dist_and_type(d_new)
-                        dead, res = collision_check(
-                            d1, t1, d2, t2, self.key_to_search,
-                            self.key_to_search_neg, self.range_start,
-                            width_div2_sym=wd2_sym,
-                        )
-                        if res is not None:
-                            result = res
-                            return True
-                        if dead:
-                            self.stats.dead += 1
-                            resets.append(int(lanes[off + idx]))
-                if resets:
-                    with spans.span("reset"):
-                        self._reset_lanes(states, resets, rng)
-                return False
-
-        # Pipelined loop.  Each iteration reads every shard's tick T-1
-        # DPs, shard by shard (each waits only for its own shard's T-1
-        # windows, compaction and copy, which were queued behind them),
-        # launches tick T's windows on every shard at once with each
-        # shard's compaction behind its last window, then drains T-1 on
-        # the host while T runs on the card.  (Launching each shard
-        # right after its own read lets the shards drift apart, so that
-        # one runs alone on a shared card.)  Dead-lane resets therefore
-        # land one tick late, exactly as in the JAX solver's loop
-        # (dispatch T, then drain T-1), and the same class of slack as
-        # the reference's asynchronous GPU readback
-        # (GPUEngine.cu:607-677).
-        pending = pending_done = None
+    def _run(self, w: _Walk, progress, max_ticks, save_hook):
+        """The loop, then span `finish` (the last drain, `sync`, the herd's
+        gather, the last save's join), or the watchdog's save."""
         self.stats.count = self.offset_count
         t0 = spans.now()
-        last_status = last_save = t0
-        tick = 0
-        stop = False
         hung = False
         with contextlib.ExitStack() as finishing:
             try:
-                while result is None and not stop:
-                    if max_ticks is not None and tick >= max_ticks:
-                        break
-                    if (opts.max_step > 0 and self.stats.count
-                            > opts.max_step * self.stats.expected_ops):
-                        break
-                    with spans.span("tick"):
-                        # tick T counts from its start, as the JAX solver
-                        # counts a tick at its dispatch (a hang's file
-                        # holds its count)
-                        self.stats.count += n * nb_run * kw
-                        tick += 1
-                        pulled = None if pending is None else [
-                            pull(i, sh, w, e) for i, (sh, w, e) in
-                            enumerate(zip(shards, pending, pending_done))]
-                        with spans.span("launch"):
-                            pending = [[] for _ in shards]
-                            for _ in range(kw):
-                                for st, w, out in zip(
-                                        states, pending,
-                                        tick_fn(states, tables)):
-                                    st[:3] = out[0:3]
-                                    if sym:
-                                        st[3] = out[7]
-                                    w.append(out[3:7])
-                            # each shard's compaction and copy behind its
-                            # last window, before the tick's event
-                            pending = [
-                                sharding.queue_compact(sh, w, n_slots,
-                                                       nb_run)
-                                for sh, w in zip(shards, pending)]
-                            pending_done = [
-                                None if sh.stream is None
-                                else sh.stream.record_event()
-                                for sh in shards]
-                        if pulled is not None:
-                            stop = drain(pulled)
-                        now = spans.now()
-                        if progress is not None and now - last_status > 2e9:
-                            progress(self, (now - t0) * 1e-9)
-                            last_status = now
-                        if ((opts.work_file or save_hook is not None)
-                                and result is None and not sink_end
-                                and now - last_save > opts.save_period * 1e9):
-                            # tick T's herd (after T-1's resets), the DPs
-                            # up to T-1 and tick T in the count, as the
-                            # JAX solver saves
-                            elapsed = (now - t0) * 1e-9
-                            if save_hook is not None:
-                                self._run_save_hook(save_hook, states,
-                                                    elapsed)
-                            else:
-                                self._save_work(
-                                    states, elapsed,
-                                    kangaroo_only=dp_sink is not None)
-                            last_save = now
-                # span `finish`: the last drain, the synchronise, the
-                # herd's gather and the last save's join
+                self._loop(w, t0, progress, max_ticks, save_hook)
                 finishing.enter_context(spans.span("finish"))
-                if result is None and not sink_end and pending is not None:
-                    drain([pull(i, sh, w, e) for i, (sh, w, e) in
-                           enumerate(zip(shards, pending, pending_done))])
+                if (w.result is None and not w.sink_end
+                        and w.pending is not None):
+                    self._drain(w, self._pull_all(w))
                 with spans.span("sync") as sync:
-                    if cuda:
+                    if self.device.type == "cuda":
                         # the last dispatched tick is in stats.count:
                         # finish it, so that count / time is the rate of
                         # work actually done
-                        self._host_read(lambda: sharding.synchronize(shards))
+                        self._host_read(functools.partial(
+                            sharding.synchronize, self.shards))
                 loop_end = sync.end
             except DeviceHangError as e:
                 hung = True
-                self._on_hang(e, dp_sink, (spans.now() - t0) * 1e-9)
+                self._on_hang(e, w.dp_sink, (spans.now() - t0) * 1e-9)
                 loop_end = spans.now()
-            self.stats.ticks = tick
+            self.stats.ticks = w.ticks
             self.stats.time = self.offset_time + (loop_end - t0) * 1e-9
-            self.last_state = sharding.gather_herd(
-                shards, [st[:3] for st in states]) if not hung else None
+            self.last_state = None if hung else sharding.gather_herd(
+                self.shards, [st[:3] for st in w.states])
             # a repeated solve() on this key continues from here
             self.offset_count = self.stats.count
             self.offset_time = self.stats.time
             if not hung:
                 self.finish_save()
-        if result is not None and opts.out_file:
-            self._output(result)
-        return result
+        return w.result
+
+    def _loop(self, w: _Walk, t0: int, progress, max_ticks, save_hook):
+        """Ticks (span `tick` each) until a stop, with the progress
+        callback every 2 s and the periodic saves."""
+        opts = self.opts
+        last_status = last_save = t0
+        stop = False
+        while w.result is None and not stop:
+            if max_ticks is not None and w.ticks >= max_ticks:
+                break
+            if (opts.max_step > 0 and self.stats.count
+                    > opts.max_step * self.stats.expected_ops):
+                break
+            with spans.span("tick"):
+                stop = self._tick(w)
+                now = spans.now()
+                if progress is not None and now - last_status > 2e9:
+                    progress(self, (now - t0) * 1e-9)
+                    last_status = now
+                if ((opts.work_file or save_hook is not None)
+                        and w.result is None and not w.sink_end
+                        and now - last_save > opts.save_period * 1e9):
+                    # tick T's herd (after T-1's resets), the DPs up to
+                    # T-1 and tick T in the count, as the JAX solver saves
+                    elapsed = (now - t0) * 1e-9
+                    if save_hook is not None:
+                        self._run_save_hook(save_hook, w.states, elapsed)
+                    else:
+                        self._save_work(w.states, elapsed,
+                                        kangaroo_only=w.dp_sink is not None)
+                    last_save = now
+
+    def _tick(self, w: _Walk) -> bool:
+        """Tick T: pull every shard's T-1 DPs in turn (each waits only for
+        its own shard's T-1 windows, compaction and copy), launch T on
+        every shard at once, then drain T-1 on the host while T runs.
+        (Launching each shard right after its own pull lets the shards
+        drift apart, so that one runs alone on a shared card.)  Resets
+        thus land one tick late, as in the JAX solver's loop and the
+        reference's asynchronous readback (GPUEngine.cu:607-677).
+        Returns True when the drain stops the loop."""
+        opts = self.opts
+        # tick T counts from its start, as the JAX solver counts a tick
+        # at its dispatch (a hang's file holds its count)
+        self.stats.count += (opts.nb_kangaroo * opts.nb_run
+                             * self.windows_per_tick)
+        w.ticks += 1
+        pulled = None if w.pending is None else self._pull_all(w)
+        with spans.span("launch"):
+            w.pending = self._launch(w)
+        return pulled is not None and self._drain(w, pulled)
+
+    def _launch(self, w: _Walk) -> list:
+        """A tick's windows on every shard, then each shard's compaction
+        queued behind its last; returns the shards' pulls."""
+        sym = self.opts.symmetry
+        wins = [[] for _ in self.shards]
+        for _ in range(self.windows_per_tick):
+            for st, win, out in zip(w.states, wins,
+                                    w.tick_fn(w.states, w.tables)):
+                st[:3] = out[0:3]
+                if sym:
+                    st[3] = out[7]
+                win.append(out[3:7])
+        return [sharding.queue_compact(sh, win, self.n_slots,
+                                       self.opts.nb_run)
+                for sh, win in zip(self.shards, wins)]
+
+    def _pull_all(self, w: _Walk) -> list:
+        return [self._pull(i, sh, q)
+                for i, (sh, q) in enumerate(zip(self.shards, w.pending))]
+
+    def _pull(self, i: int, sh, q):
+        """Shard i's DPs of a tick, read once under the watchdog; returns
+        ((lost, block), seconds)."""
+        t = spans.now()
+        waited, out = self._host_read(functools.partial(self._read, sh, q))
+        end = spans.now()
+        spans.add("compact.wait", t, waited, shard=i)
+        spans.add("compact", waited, end, shard=i)
+        if q.spilled:
+            spans.count("compact.spill", 1)
+        return out, (end - t) * 1e-9
+
+    def _read(self, sh, q):
+        q.wait()
+        waited = spans.now()
+        return waited, sharding.compact(sh, q, self.n_slots, self.opts.nb_run)
+
+    def _drain(self, w: _Walk, pulled) -> bool:
+        """One tick's pulls merged, to the sink or the table; True when
+        the key is solved or the sink ends the search."""
+        with spans.span("drain"):
+            self.stats.compact_s.append(tuple(sec for _, sec in pulled))
+            lost = sum(lost for (lost, _), _ in pulled)
+            blks = [blk for (_, blk), _ in pulled]
+            blk = blks[0] if len(blks) == 1 else np.concatenate(blks)
+            if lost:
+                self.stats.lost += lost
+                if not self._lost_warned and not self.opts.quiet:
+                    self._lost_warned = True
+                    print(f"\nWarning, {lost} items lost\nHint: "
+                          f"increase dp bit number or decrease -nbrun "
+                          f"to lower the DP rate per launch window")
+            if not len(blk):
+                return False
+            rec, lanes = encode_records(blk, self.width_div2,
+                                        self.opts.symmetry)
+            if w.dp_sink is None:
+                return self._insert(w, rec, lanes)
+            m = rec.shape[0]
+            spans.count("dps", m)
+            # the wire's kIdx column carries the (global) origin lane
+            wire = np.empty((m, 40), dtype=np.uint8)
+            wire[:, 0:4] = lanes.astype("<u4").view(np.uint8).reshape(m, 4)
+            wire[:, 4:] = rec
+            w.sink_end = bool(w.dp_sink(wire.tobytes(), m))
+            return w.sink_end
+
+    def _insert(self, w: _Walk, rec, lanes) -> bool:
+        """Insert in the JAX solver's chunks, so that resets (and their
+        RNG draws) come in its order; True once a chunk solves the key."""
+        wd2_sym = self.width_div2 if self.opts.symmetry else None
+        resets = []
+        m = rec.shape[0]
+        for off in range(0, m, DRAIN_CHUNK):
+            part = min(DRAIN_CHUNK, m - off)
+            spans.count("dps", part)
+            _, dup_idx, dup_total, colls = self.hash_table.add_batch_raw(
+                rec[off:off + part].tobytes(), part)
+            self.stats.dead += dup_total
+            self.stats.dup += dup_total
+            resets += [int(lanes[off + i]) for i in dup_idx]
+            for _, d_new, d_old, idx in colls:
+                d1, t1 = calc_dist_and_type(d_old)
+                d2, t2 = calc_dist_and_type(d_new)
+                dead, res = collision_check(
+                    d1, t1, d2, t2, self.key_to_search,
+                    self.key_to_search_neg, self.range_start,
+                    width_div2_sym=wd2_sym)
+                if res is not None:
+                    w.result = res
+                    return True
+                if dead:
+                    self.stats.dead += 1
+                    resets.append(int(lanes[off + idx]))
+        if resets:
+            with spans.span("reset"):
+                self._reset_lanes(w.states, resets, w.rng)
+        return False
 
     def _on_hang(self, err, dp_sink, elapsed):
         """The watchdog fired: save what the host holds -- the table and

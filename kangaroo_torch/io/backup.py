@@ -314,10 +314,8 @@ def d128_records(d, width_div2: int, symmetry: bool) -> np.ndarray:
     D encoding, its type from its lane's parity (the vectorized
     convert(0, dist, i % 2) per lane), as HEADKS files and the -wss
     exchange store them."""
-    d = _host(d).astype(np.uint64)
-    n = d.shape[1]
-    lo, hi = (d[k] | (d[k + 1] << np.uint64(16)) | (d[k + 2] << np.uint64(32))
-              | (d[k + 3] << np.uint64(48)) for k in (0, 4))
+    lo, hi = packing.dist_words(_host(d))
+    n = len(lo)
     words = np.empty((n, 2), dtype="<u8")
     words[:, 0], words[:, 1] = packing.d128_words(
         lo, hi, np.arange(n) & 1, width_div2, symmetry)

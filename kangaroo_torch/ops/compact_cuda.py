@@ -13,8 +13,8 @@ it, a CUDA tensor launches the kernels or raises.
 On the card the solver queues a tick's compaction (`Blocks.queue`) on
 the shard's stream right behind its last window: a count, a scan and a
 gather launch write a header row (lost and m, exact int64) and the
-first `capacity` records into a device block, and one copy brings the
-block to pinned host memory.  Once the stream has passed it, `read()`
+first `capacity` records into a device block, and one copy and an
+event bring the block to pinned host memory.  After `wait()`, `read()`
 takes lost and the records from the pinned block; a tick with more
 records than the capacity (a spill) has the rest gathered and copied
 by one more launch and copy.  The capacity follows the shape
@@ -194,9 +194,8 @@ class Blocks:
               lo: int = 0) -> "Queued":
         """Launch the compaction of a tick's windows (count, dpx, dpd,
         step each) of this shape, and its copy to the next pinned
-        block, on the device's current stream; no synchronization.
-        Returns the Queued tick, to be read once the stream has passed
-        it."""
+        block, then the event after it, on the device's current stream;
+        no synchronization.  Returns the Queued tick."""
         global LAUNCHES
         n, dev = check_windows(wins, slots)
         if dev != self.device or (n, slots, len(wins)) != self.key[:3]:
@@ -216,6 +215,7 @@ class Blocks:
         if err:
             raise RuntimeError(f"compaction kernel launch failed: "
                                f"{lib.kt_compact_error_string(err).decode()}")
+        q.done = stream.record_event()
         LAUNCHES += 1
         self.last = q
         return q
@@ -242,9 +242,8 @@ class Blocks:
 
 
 class Queued:
-    """A tick's compaction on its way to the host: read() it, on any
-    thread, once its stream has passed the copy (an event recorded after
-    queue()).  `spilled` tells whether the read needed the second
+    """A tick's compaction on its way to the host: wait(), then read(),
+    on any thread.  `spilled` tells whether the read needed the second
     copy."""
 
     def __init__(self, blocks: Blocks, wins: list, slots: int, nb_run: int,
@@ -258,6 +257,10 @@ class Queued:
         self.stream = stream
         self.ptrs = window_pointers(wins)
         self.spilled = False
+        self.done = None  # the event after the copy (Blocks.queue)
+
+    def wait(self) -> None:
+        self.done.synchronize()
 
     def read(self):
         """(lost, block): block a (m, 20) int32 view of the pinned rows,
@@ -268,6 +271,22 @@ class Queued:
     def _rest(self, r0: int, r1: int) -> np.ndarray:
         self.spilled = True
         return self.blocks.rest(self, r0, r1)
+
+
+class Plain:
+    """A CPU shard's tick, with Queued's interface: compact_plain of its
+    (wins, slots, nb_run, lo) when read; no wait, never a spill."""
+
+    spilled = False
+
+    def __init__(self, *args):
+        self.args = args
+
+    def wait(self) -> None:
+        pass
+
+    def read(self):
+        return compact_plain(*self.args)
 
 
 def assemble(rows: np.ndarray, cap: int, rest) -> tuple:

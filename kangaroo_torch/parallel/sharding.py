@@ -177,13 +177,11 @@ def compact_blocks(shard: Shard, slots: int, windows: int, nb_run: int,
 
 def queue_compact(shard: Shard, wins, slots: int, nb_run: int):
     """Queue the compaction of a tick's windows (each (count, dpx, dpd,
-    step), in launch order) on the shard's stream, right behind its last
-    window, into `shard.blocks` (compact_blocks): on a card the
-    compact_cuda.Queued tick, which `compact` reads once the stream has
-    passed it; on the CPU the windows themselves, which `compact`
-    compacts then."""
+    step), in launch order): on a card a compact_cuda.Queued, launched
+    on the shard's stream behind its last window into `shard.blocks`
+    (compact_blocks); on the CPU a compact_cuda.Plain."""
     if shard.stream is None:
-        return wins
+        return compact_cuda.Plain(wins, slots, nb_run, shard.lo)
     if shard.blocks is None:
         raise ValueError("a card's shard needs compact_blocks before its "
                          "first queue_compact")
@@ -191,23 +189,14 @@ def queue_compact(shard: Shard, wins, slots: int, nb_run: int):
         return shard.blocks.queue(wins, slots, nb_run, shard.lo)
 
 
-def compact(shard: Shard, wins, slots: int, nb_run: int):
-    """One shard's DPs of a tick's windows, read to the host: the
-    solver's per-tick pull (core/solver.py), which
-    parallel/weak_scaling.py times.
-
-    wins is what `queue_compact` returned: on a card a queued tick,
-    whose lost count and records are read from its pinned block; on the
-    CPU the windows, compacted here by compact_cuda.compact_plain.
-    Returns (lost, block): lost exact, block (m, 20) int32 of [x limbs
-    0..9 | d limbs 0..7 | step within the tick (window * nb_run + step)
-    | global lane]."""
-    if isinstance(wins, compact_cuda.Queued):
-        return wins.read()  # pinned host memory: no device or stream
-    if shard.stream is not None:
-        raise ValueError("a card's windows are compacted through "
-                         "queue_compact")
-    return compact_cuda.compact_plain(wins, slots, nb_run, shard.lo)
+# The solver looks this up here on every pull (shard.lo set), so that
+# portbench/faults.py can wrap it: keep its four positional arguments.
+def compact(shard: Shard, q, slots: int, nb_run: int):
+    """One shard's DPs of a tick, read to the host from q, what
+    `queue_compact` returned, after its wait().  Returns (lost, block):
+    lost exact, block (m, 20) int32 of [x limbs 0..9 | d limbs 0..7 |
+    step within the tick (window * nb_run + step) | global lane]."""
+    return q.read()
 
 
 def make_sharded_jump_steps(shards: Sequence[Shard], nb_run: int,

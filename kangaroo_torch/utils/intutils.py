@@ -13,7 +13,7 @@ from typing import Iterable, List
 
 import numpy as np
 
-from ..constants import LIMB_BITS, LIMB_MASK, NB_LIMB, NB_LIMB_D
+from ..constants import LIMB_BITS, LIMB_MASK, NB_LIMB
 
 
 def int_to_limbs(v: int, nb_limb: int = NB_LIMB) -> np.ndarray:
@@ -83,8 +83,3 @@ def ints_to_limbs_fast(vals, nb_limb: int = NB_LIMB) -> np.ndarray:
     buf = b"".join([(v & full).to_bytes(nbytes, "little") for v in raw])
     limbs = np.frombuffer(buf, dtype="<u2").reshape(len(raw), nb_limb)
     return np.ascontiguousarray(limbs.T, dtype=np.uint32)
-
-
-def int_to_dist_limbs(v: int) -> np.ndarray:
-    """128-bit device distance -> (NB_LIMB_D,) limbs (two's complement)."""
-    return int_to_limbs(v & ((1 << 128) - 1), NB_LIMB_D)

@@ -94,6 +94,14 @@ def canon_mod_p(y: np.ndarray) -> np.ndarray:
     )
 
 
+def dist_words(d: np.ndarray):
+    """(8, N) 16-bit distance limbs -> their (N,) uint64 lo and hi words."""
+    d = np.asarray(d).astype(np.uint64)
+    return tuple(d[k] | (d[k + 1] << np.uint64(16))
+                 | (d[k + 2] << np.uint64(32)) | (d[k + 3] << np.uint64(48))
+                 for k in (0, 4))
+
+
 def true_dist_limbs(
     d: np.ndarray, types: np.ndarray, width_div2: int, symmetry: bool
 ) -> np.ndarray:
@@ -117,18 +125,7 @@ def true_dist_limbs(
     # d_dev >= W/2 ? plain subtract : subtract then add n
     w0 = np.uint64(width_div2 & ((1 << 64) - 1))
     w1 = np.uint64(width_div2 >> 64)
-    du0 = (
-        d[0].astype(np.uint64)
-        | (d[1].astype(np.uint64) << np.uint64(16))
-        | (d[2].astype(np.uint64) << np.uint64(32))
-        | (d[3].astype(np.uint64) << np.uint64(48))
-    )
-    du1 = (
-        d[4].astype(np.uint64)
-        | (d[5].astype(np.uint64) << np.uint64(16))
-        | (d[6].astype(np.uint64) << np.uint64(32))
-        | (d[7].astype(np.uint64) << np.uint64(48))
-    )
+    du0, du1 = dist_words(d)
     ge = (du1 > w1) | ((du1 == w1) & (du0 >= w0))
     addn = wild & ~ge
     cols -= wild[None, :] * w[:, None]

@@ -170,11 +170,14 @@ def test_two_shard_solve_matches_the_plain_path(card, monkeypatch):
     launches = compact_cuda.LAUNCHES
     got = solve()
     assert compact_cuda.LAUNCHES - launches == got.stats.ticks * 2
-    monkeypatch.setattr(sharding, "queue_compact",
-                        lambda sh, wins, *a: wins)
-    monkeypatch.setattr(
-        sharding, "compact", lambda sh, wins, slots, nb_run:
-        compact_cuda.compact_plain(wins, slots, nb_run, sh.lo))
+
+    def plain(sh, wins, slots, nb_run):
+        # the CPU's pull of a card's windows: its read, compact_plain,
+        # runs on the reader thread's stream, so the windows end first
+        sh.stream.synchronize()
+        return compact_cuda.Plain(wins, slots, nb_run, sh.lo)
+
+    monkeypatch.setattr(sharding, "queue_compact", plain)
     want = solve()
     assert got.hash_table.n_items() > 1000
     assert got.hash_table.export() == want.hash_table.export()

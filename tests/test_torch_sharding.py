@@ -41,7 +41,7 @@ from kangaroo_torch import interop  # noqa: E402
 from kangaroo_torch.core import curve, solver  # noqa: E402
 from kangaroo_torch.core.config import (  # noqa: E402
     ProblemConfig, parse_config_file)
-from kangaroo_torch.ops import field, jump_cuda  # noqa: E402
+from kangaroo_torch.ops import compact_cuda, field, jump_cuda  # noqa: E402
 from kangaroo_torch.parallel import sharding  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
@@ -132,23 +132,44 @@ def _port(nd, **kw):
         n_devices=nd, **kw))
 
 
-@pytest.mark.parametrize("sym,seed", [(False, 36), (True, 8)],
-                         ids=["plain", "sym"])
-def test_sharded_solve_equals_jax(sym, seed):
+@pytest.mark.parametrize("sym,seed,nds", [
+    (False, 36, (8, 1)), (True, 8, (8, 1)), (False, 36, (2,))],
+    ids=["plain", "sym", "plain-2"])
+def test_sharded_solve_equals_jax(sym, seed, nds, monkeypatch):
     """in32 at 512 lanes over 8 shards: the JAX solver's 8-device solve
-    and the port's own one-device solve fill the same table, with the
+    and the port's own solve on nds shards fill the same table, with the
     same dead, lost and count, and find the same key (seed 36 solves
-    in 5 ticks after 3 dead lanes, -sym seed 8 in 3 after 2)."""
+    in 5 ticks after 3 dead lanes, -sym seed 8 in 3 after 2).  Every
+    shard's tick is pulled through sharding.queue_compact, as a
+    compact_cuda.Plain on the CPU, and read by sharding.compact in the
+    order it was queued; only the last tick's may be left unread."""
     js = jsolver.KangarooSolver(jparse(IN32), jsolver.SolverOptions(
         nb_kangaroo=512, dp_size=4, nb_run=16, seed=seed, n_devices=8,
         backend="xla", quiet=True, symmetry=sym))
     jres = js.solve(0, max_ticks=5)
     assert js._exec_cache[0][7] == 8  # the JAX solve ran on 8 devices
     assert jres is not None and jres.private_key == 0xB862A62E
-    for nd in (8, 1):
+    queue, read = sharding.queue_compact, sharding.compact
+    for nd in nds:
+        queued, pulled = [], []
+
+        def spy_queue(sh, wins, slots, nb_run, out=queued):
+            out.append((sh.lo, queue(sh, wins, slots, nb_run)))
+            return out[-1][1]
+
+        def spy_read(sh, q, slots, nb_run, out=pulled):
+            out.append((sh.lo, q))
+            return read(sh, q, slots, nb_run)
+
+        monkeypatch.setattr(sharding, "queue_compact", spy_queue)
+        monkeypatch.setattr(sharding, "compact", spy_read)
         ts = _port(nd, seed=seed, symmetry=sym)
         assert len(ts.shards) == nd
         res = ts.solve(0, max_ticks=5)
+        assert len(queued) == ts.stats.ticks * nd
+        assert all(isinstance(q, compact_cuda.Plain) for _, q in queued)
+        assert pulled == queued[:len(pulled)]
+        assert len(pulled) >= len(queued) - nd
         assert ts.hash_table.export() == js.hash_table._export(), nd
         assert (ts.stats.dead, ts.stats.lost, ts.stats.count) == (
             js.stats.dead, js.stats.lost, js.stats.count), nd

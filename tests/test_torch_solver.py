@@ -117,6 +117,56 @@ def test_work_model_matches_jax():
             jsolver.poisson_tail(nb_run / 2 ** dp, 3)
 
 
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_encode_records_equals_convert(symmetry):
+    """hashtable.encode_records of random (m, 20) blocks in shuffled
+    walk order, tame and wild lanes, against the table's own per-record
+    conversion: hashtable.convert of x, the mod-n distance of
+    packing.true_dist_limbs and the lane's parity; the lanes come back
+    in walk order (step, then lane)."""
+    import numpy as np
+
+    from kangaroo_torch.core import hashtable
+    from kangaroo_torch.utils import packing
+
+    rs = np.random.RandomState(5 + symmetry)
+    wd2 = ((1 << 100) - 1) >> 1
+    m = 600
+    cells = rs.choice(64 * 1024, m, replace=False)  # distinct (step, lane)
+    blk = np.zeros((m, 20), dtype=np.int32)
+    blk[:, 0:10] = rs.randint(0, 1 << 16, (m, 10))
+    if symmetry:  # signed 128-bit distances, |d| < 2^100
+        ds = [int(v) << 40 | int(u) for v, u in zip(
+            rs.randint(-(1 << 59), 1 << 59, m), rs.randint(0, 1 << 40, m))]
+        ds[:3] = [0, -1, 1]
+    else:  # device distances in [0, 2 * wd2]
+        ds = [int(v) << 50 | int(u) for v, u in zip(
+            rs.randint(0, 1 << 50, m), rs.randint(0, 1 << 50, m))]
+        ds[:4] = [0, wd2, wd2 - 1, wd2 + 1]
+    du = [d & ((1 << 128) - 1) for d in ds]
+    blk[:, 10:18] = [[(d >> (16 * k)) & 0xFFFF for k in range(8)] for d in du]
+    blk[:, 18] = cells // 1024
+    blk[:, 19] = cells % 1024
+    blk[:4, 19] = [2, 3, 5, 7]  # tame and wild lanes at the edge cases
+    blk[:4, 18] = 64
+
+    rec, lanes = hashtable.encode_records(blk, wd2, symmetry)
+
+    order = np.lexsort((blk[:, 19], blk[:, 18]))
+    np.testing.assert_array_equal(lanes, blk[order, 19])
+    types = blk[:, 19] & 1
+    dm = packing.true_dist_limbs(blk[:, 10:18].T, types, wd2, symmetry)
+    want = []
+    for r in order:
+        x = sum(int(blk[r, k]) << (16 * k) for k in range(10))
+        d = sum(int(dm[k, r]) << (16 * k) for k in range(16))
+        h, x128, d128 = hashtable.convert(x, d, int(types[r]))
+        want.append(h.to_bytes(4, "little") + x128.to_bytes(16, "little")
+                    + d128.to_bytes(16, "little"))
+    assert rec.dtype == np.uint8 and rec.shape == (m, 36)
+    assert rec.tobytes() == b"".join(want)
+
+
 def test_device_rules():
     cfg = parse_config_file(IN32)
     if not torch.cuda.is_available():
