@@ -5,12 +5,14 @@
 // CPU tests (host_shim.cpp), so the kernel's own arithmetic is checked
 // without a card.  The add-class ops (fe_fold, fe_add, fe_sub_c,
 // fe_sub) are carry chains written once over the six one-word carry
-// primitives below: on the device each primitive is one PTX carry
-// instruction (add.cc.u32 ... subc.u32) in inline PTX, on the host a
-// C++ twin with the same carry semantics, so the g++ build checks the
-// chains themselves (tests/test_torch_field_cuh.py holds them against
-// Python ints and the JAX package) and only the primitives differ.  No
-// other inline PTX.
+// primitives below, and so are the words of the multiply-class ops
+// (fe_mul, fe_sqr, fe_reduce512), which add wide products up: on the
+// device each primitive is one PTX carry instruction (add.cc.u32 ...
+// subc.u32) in inline PTX, on the host a C++ twin with the same carry
+// semantics, so the g++ build checks the chains themselves
+// (tests/test_torch_field_cuh.py holds them against Python ints, on
+// every carry pattern of tests/carry_cases.py, and against the JAX
+// package) and only the primitives differ.  No other inline PTX.
 //
 // A field element is uint32_t[8], least-significant word first.  Word w
 // holds the 16-bit limbs 2w (low half) and 2w+1 (high half) of the
@@ -204,70 +206,130 @@ KT_HD void fe_sub(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
     r[1] = subc(cy, r[1], k2);
 }
 
-// r = t mod p, relaxed, for a 512-bit t (16 words): fold the high half,
-// T_hi * 2^256 == T_hi * 977 + T_hi * 2^32 (8 wide multiply-adds).
-KT_HD void fe_reduce512(uint32_t r[8], const uint32_t t[16]) {
-    uint64_t c = 0;
-    for (int i = 0; i < 8; ++i) {
-        c += (uint64_t)t[i] + (uint64_t)t[8 + i] * C_LOW;
-        if (i > 0) c += t[7 + i];
-        r[i] = (uint32_t)c;
-        c >>= 32;
+// ---- multiply-class ops: wide products and add chains ----
+//
+// A wide product a * b (a, b < 2^32) is one IMAD.WIDE.U32 on the card:
+// both its words in two issue slots of the multiply-add pipe.  A row of
+// them, a * b[0..N-1], is N + 1 words once word j adds the low half of
+// product j to the high half of product j - 1: one add chain, which the
+// card issues on its ALU pipe, beside the products.  A second chain adds
+// the row into the running sum.  So every word of every product is
+// added once, by a carry instruction off the multiply-add pipe (a
+// 64-bit accumulator's carries took slots there as IMAD.X).  A row
+// computes its products first and then runs its chains:
+// nothing but chain primitives stands between an instruction that sets
+// the carry and the one that reads it, and g++ runs the same chains over
+// the primitives' twins.
+
+KT_HD uint32_t lo32(uint64_t p) { return (uint32_t)p; }
+KT_HD uint32_t hi32(uint64_t p) { return (uint32_t)(p >> 32); }
+
+// s[0..N] = a * b[0..N-1]
+template <int N>
+KT_HD void row_product(uint32_t* s, uint32_t a, const uint32_t* b) {
+    uint64_t p[N];
+    KT_UNROLL
+    for (int j = 0; j < N; ++j) p[j] = (uint64_t)a * b[j];
+    s[0] = lo32(p[0]);
+    if constexpr (N == 1) {
+        s[1] = hi32(p[0]);
+    } else {
+        Carry cy;
+        s[1] = add_cc(cy, lo32(p[1]), hi32(p[0]));
+        KT_UNROLL
+        for (int j = 2; j < N; ++j)
+            s[j] = addc_cc(cy, lo32(p[j]), hi32(p[j - 1]));
+        // a * b < 2^(32 (N + 1)): the top word takes the last carry
+        s[N] = addc(cy, hi32(p[N - 1]), 0u);
     }
-    c += t[15];  // the top high word, shifted by 32 bits, lands at 2^256
-    fe_fold(r, c);
 }
 
-// r = (a * b) mod p, relaxed.  Schoolbook 8x8 product with 64-bit
-// accumulators (64 wide multiply-adds), then fe_reduce512.
+// r[0..N] = a * b[0..N-1] + r[0..N-1]; r[N] is written, not read, and
+// the caller knows the sum fits in N + 1 words.  FIRST: r[0..N-1] are 0
+// and not read either.
+template <int N, bool FIRST = false>
+KT_HD void row_mul_add(uint32_t* r, uint32_t a, const uint32_t* b) {
+    uint32_t s[N + 1];
+    row_product<N>(s, a, b);
+    if constexpr (FIRST) {
+        KT_UNROLL
+        for (int j = 0; j <= N; ++j) r[j] = s[j];
+    } else {
+        Carry cy;
+        r[0] = add_cc(cy, r[0], s[0]);
+        KT_UNROLL
+        for (int j = 1; j < N; ++j) r[j] = addc_cc(cy, r[j], s[j]);
+        r[N] = addc(cy, s[N], 0u);
+    }
+}
+
+// r = t mod p, relaxed, for a 512-bit t (16 words): fold the high half,
+// T_hi * 2^256 == T_hi * 977 + T_hi * 2^32.  Here each wide product
+// takes its word of T_lo as the addend, 977 t[8 + i] + t[i] < 2^42, and
+// one add chain joins them into w = T_lo + 977 T_hi < 978 * 2^256 (a
+// top word w[8] below 978); T_hi added one word up (words 1-8) leaves
+// above 2^256 k = w[8] + t[15] + a carry < 2^32 + 979, within fe_fold's
+// k < 2^34.
+KT_HD void fe_reduce512(uint32_t r[8], const uint32_t t[16]) {
+    uint64_t p[8];
+    KT_UNROLL
+    for (int i = 0; i < 8; ++i) p[i] = (uint64_t)t[8 + i] * C_LOW + t[i];
+    uint32_t w[9];
+    Carry cy;
+    w[0] = lo32(p[0]);
+    w[1] = add_cc(cy, lo32(p[1]), hi32(p[0]));
+    KT_UNROLL
+    for (int i = 2; i < 8; ++i) w[i] = addc_cc(cy, lo32(p[i]), hi32(p[i - 1]));
+    w[8] = addc(cy, hi32(p[7]), 0u);
+    r[0] = w[0];
+    r[1] = add_cc(cy, w[1], t[8]);
+    KT_UNROLL
+    for (int i = 2; i < 8; ++i) r[i] = addc_cc(cy, w[i], t[7 + i]);
+    const uint32_t k = addc_cc(cy, w[8], t[15]);
+    const uint32_t kh = addc(cy, 0u, 0u);
+    fe_fold(r, ((uint64_t)kh << 32) | k);
+}
+
+// r = (a * b) mod p, relaxed: the 512-bit product as 8 rows (operand
+// scanning: row i adds a[i] * b into words i..i+8), then fe_reduce512.
+// After row i the product so far is < 2^(32 (i + 9)), so no row carries
+// out of its top word.
 KT_HD void fe_mul(uint32_t r[8], const uint32_t a[8], const uint32_t b[8]) {
     uint32_t t[16];
-    for (int i = 0; i < 16; ++i) t[i] = 0;
-    for (int i = 0; i < 8; ++i) {
-        uint64_t c = 0;
-        for (int j = 0; j < 8; ++j) {
-            // (2^32-1)^2 + 2 * (2^32-1) == 2^64 - 1: never overflows
-            c += (uint64_t)a[i] * b[j] + t[i + j];
-            t[i + j] = (uint32_t)c;
-            c >>= 32;
-        }
-        t[i + 8] = (uint32_t)c;
-    }
+    row_mul_add<8, true>(t, a[0], b);
+    KT_UNROLL
+    for (int i = 1; i < 8; ++i) row_mul_add<8>(t + i, a[i], b);
     fe_reduce512(r, t);
 }
 
-// r = a^2 mod p, relaxed.  36 wide multiply-adds instead of 64: the 28
-// cross products a[i] a[j] (i < j) once, doubled by a shift, plus the 8
-// squares a[i]^2; then fe_reduce512.
+// r = a^2 mod p, relaxed: the 28 cross products a[i] a[j] (i < j) as 7
+// rows (row i adds a[i] * a[i+1..7] into words 2i+1..i+8; after it the
+// sum is < 2^(32 (i + 9))), doubled by an add chain (the cross sum is <
+// 2^511, so no bit is lost), plus the 8 squares a[i]^2 at words 2i,
+// 2i+1 in one chain (the total is a^2 < 2^512); then fe_reduce512.
 KT_HD void fe_sqr(uint32_t r[8], const uint32_t a[8]) {
     uint32_t t[16];
-    for (int i = 0; i < 16; ++i) t[i] = 0;
-    for (int i = 0; i < 7; ++i) {
-        uint64_t c = 0;
-        for (int j = i + 1; j < 8; ++j) {
-            c += (uint64_t)a[i] * a[j] + t[i + j];
-            t[i + j] = (uint32_t)c;
-            c >>= 32;
-        }
-        t[i + 8] = (uint32_t)c;
-    }
-    // the cross sum is < 2^511, so doubling it drops no bit
-    uint32_t top = 0;
-    for (int i = 0; i < 16; ++i) {
-        const uint32_t w = t[i];
-        t[i] = (w << 1) | top;
-        top = w >> 31;
-    }
-    uint64_t c = 0;
-    for (int i = 0; i < 8; ++i) {
-        const uint64_t sq = (uint64_t)a[i] * a[i];
-        c += (uint64_t)t[2 * i] + (uint32_t)sq;
-        t[2 * i] = (uint32_t)c;
-        c >>= 32;
-        c += (uint64_t)t[2 * i + 1] + (sq >> 32);
-        t[2 * i + 1] = (uint32_t)c;
-        c >>= 32;
-    }
+    row_mul_add<7, true>(t + 1, a[0], a + 1);
+    row_mul_add<6>(t + 3, a[1], a + 2);
+    row_mul_add<5>(t + 5, a[2], a + 3);
+    row_mul_add<4>(t + 7, a[3], a + 4);
+    row_mul_add<3>(t + 9, a[4], a + 5);
+    row_mul_add<2>(t + 11, a[5], a + 6);
+    row_mul_add<1>(t + 13, a[6], a + 7);
+    uint64_t q[8];
+    KT_UNROLL
+    for (int i = 0; i < 8; ++i) q[i] = (uint64_t)a[i] * a[i];
+    Carry cy;
+    t[1] = add_cc(cy, t[1], t[1]);
+    KT_UNROLL
+    for (int i = 2; i < 15; ++i) t[i] = addc_cc(cy, t[i], t[i]);
+    t[15] = addc(cy, 0u, 0u);
+    t[0] = lo32(q[0]);
+    t[1] = add_cc(cy, t[1], hi32(q[0]));
+    KT_UNROLL
+    for (int i = 2; i < 15; ++i)
+        t[i] = addc_cc(cy, t[i], (i & 1) ? hi32(q[i >> 1]) : lo32(q[i >> 1]));
+    t[15] = addc(cy, t[15], hi32(q[7]));
     fe_reduce512(r, t);
 }
 

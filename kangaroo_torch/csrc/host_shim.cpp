@@ -33,6 +33,33 @@ void kt_fe_sqr_n(uint32_t* r, const uint32_t* a, int n) {
     for (int i = 0; i < n; ++i) kt::fe_sqr(r + 8 * i, a + 8 * i);
 }
 
+// r[i] <- fe_reduce512(t[i]), t of 16 words each
+void kt_fe_reduce512_n(uint32_t* r, const uint32_t* t, int n) {
+    for (int i = 0; i < n; ++i) kt::fe_reduce512(r + 8 * i, t + 16 * i);
+}
+
+// One carry primitive of field.cuh (op: 0 add_cc, 1 addc_cc, 2 addc, 3
+// sub_cc, 4 subc_cc, 5 subc) on a[i], b[i] with the flag cf[i] coming
+// in: r[i] its result, cf[i] the flag it leaves.  Returns 1 for an
+// unknown op.
+int kt_carry_op_n(int op, uint32_t* r, uint32_t* cf, const uint32_t* a,
+                  const uint32_t* b, int n) {
+    if (op < 0 || op > 5) return 1;
+    for (int i = 0; i < n; ++i) {
+        kt::Carry cy;
+        cy.cf = cf[i];
+        const uint32_t x = a[i], y = b[i];
+        r[i] = op == 0 ? kt::add_cc(cy, x, y)
+             : op == 1 ? kt::addc_cc(cy, x, y)
+             : op == 2 ? kt::addc(cy, x, y)
+             : op == 3 ? kt::sub_cc(cy, x, y)
+             : op == 4 ? kt::subc_cc(cy, x, y)
+                       : kt::subc(cy, x, y);
+        cf[i] = cy.cf;
+    }
+    return 0;
+}
+
 void kt_fe_inv_n(uint32_t* r, const uint32_t* a, int n) {
     for (int i = 0; i < n; ++i) kt::fe_inv(r + 8 * i, a + 8 * i);
 }

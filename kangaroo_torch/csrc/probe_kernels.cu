@@ -10,6 +10,9 @@
 //                          gather, or a jump step without DP or distance
 //                          on the walk's geometry.  At one round it is
 //                          -check's field-volume oracle on the card.
+//   kt_reduce512_kernel    replaces none: fe_reduce512 once on any
+//                          512-bit input, for the card tests of the
+//                          reduction's carry chains.
 //   kt_raw_chain<Op, ILP>  replaces scripts/probe_ops.py:49 and
 //                          scripts/layout_probe.py:109: on Hopper both
 //                          are a chain of one 32-bit instruction per
@@ -232,6 +235,21 @@ FieldFn field_kernel_of(int op) {
 #if KT_PART(0)
 namespace {
 
+// fe_reduce512 once on each lane of lo + hi * 2^256 ((16, n) limbs
+// each, the P1 layout): the reduction's carry chains on any 512-bit
+// input, which no product of two field elements reaches.
+__global__ void __launch_bounds__(kt::THREADS)
+kt_reduce512_kernel(int32_t* r, const int32_t* lo, const int32_t* hi,
+                    size_t n) {
+    const size_t lane = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+    if (lane >= n) return;
+    uint32_t t[16], w[8];
+    kt::load_words(t, 8, lo, n, lane);
+    kt::load_words(t + 8, 8, hi, n, lane);
+    kt::fe_reduce512(w, t);
+    kt::store_words(r, w, 8, n, lane);
+}
+
 template <int OP, int ILP>
 __global__ void __launch_bounds__(kt::THREADS)
 kt_raw_chain(void* x, size_t nthreads, int inner, uint32_t mul) {
@@ -395,6 +413,17 @@ int kt_field_chain_launch(int op, void* x, const void* b, const void* jx,
         static_cast<int32_t*>(x), static_cast<const int32_t*>(b), (size_t)n,
         rounds, static_cast<const int32_t*>(jx),
         static_cast<const int32_t*>(jy));
+    return (int)cudaGetLastError();
+}
+
+// r (16, n) <- fe_reduce512(lo + hi * 2^256), lo and hi (16, n) limbs.
+int kt_reduce512_launch(void* r, const void* lo, const void* hi, int n,
+                        void* stream) {
+    if (n <= 0) return (int)cudaErrorInvalidValue;
+    kt_reduce512_kernel<<<(n + kt::THREADS - 1) / kt::THREADS, kt::THREADS,
+                          0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int32_t*>(r), static_cast<const int32_t*>(lo),
+        static_cast<const int32_t*>(hi), (size_t)n);
     return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,8 @@ _SIGNATURES = {
     "kt_fe_mul_n": ([_P, _P, _P, _I], None),
     "kt_fe_sqr_n": ([_P, _P, _I], None),
     "kt_fe_inv_n": ([_P, _P, _I], None),
+    "kt_fe_reduce512_n": ([_P, _P, _I], None),
+    "kt_carry_op_n": ([_I] + [_P] * 4 + [_I], _I),
     "kt_add_u128_n": ([_P, _P, _I], None),
     "kt_fe_fold_n": ([_P, _P, _I], None),
     "kt_mulhi_add_n": ([_P] * 4 + [_I], None),

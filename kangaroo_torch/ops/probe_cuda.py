@@ -249,6 +249,7 @@ def load() -> ctypes.CDLL:
                 "kt_probe_min_blocks": ([], _I),
                 "kt_field_chain_launch": ([_I] + [_P] * 4 + [_I] * 3 + [_P],
                                           _I),
+                "kt_reduce512_launch": ([_P] * 3 + [_I, _P], _I),
                 "kt_raw_chain_launch": ([_I, _I, _P, _I, _I, _I, _P], _I),
                 "kt_delta_launch": ([_I, _I] + [_P] * 7 + [_I] * 3
                                     + [_P] * 6, _I),
@@ -325,6 +326,24 @@ def field_chain(op: str, x: torch.Tensor, b: torch.Tensor, rounds: int,
         smem, _stream(x)), f"field chain {op}")
     LAUNCHES[kernel_key("field_chain", op)] += 1
     return x
+
+
+def reduce512(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """field.cuh's fe_reduce512 on lo + hi * 2^256 ((16, n) int32 limbs
+    each): (16, n) limbs of a relaxed value congruent to it mod p (see
+    probe_ref.reduce512)."""
+    if not lo.is_cuda:
+        return probe_ref.reduce512(lo, hi)
+    n = lo.shape[1]
+    _need(lo, "lo", torch.int32, (16, n), lo.device)
+    _need(hi, "hi", torch.int32, (16, n), lo.device)
+    r = torch.empty_like(lo)
+    lib = load()
+    _raise(lib, lib.kt_reduce512_launch(r.data_ptr(), lo.data_ptr(),
+                                        hi.data_ptr(), n, _stream(lo)),
+           "reduce512")
+    LAUNCHES["reduce512"] += 1
+    return r
 
 
 def raw_chain(op: str, x: torch.Tensor, inner: int, ilp: int = 4,

@@ -92,6 +92,12 @@ def field_chain(op: str, a: torch.Tensor, b: torch.Tensor, rounds: int,
     return a
 
 
+def reduce512(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """lo + hi * 2^256 mod p, relaxed; (16, N) int32 limbs each."""
+    cols = torch.cat([lo, hi]).to(torch.int64)
+    return field._reduce_cols(cols, field.M16).to(torch.int32)
+
+
 def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a * b) mod 2^32 for int64 tensors holding values < 2^32, with no
     intermediate above 2^49."""

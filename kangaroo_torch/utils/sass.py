@@ -122,6 +122,48 @@ def loop_bodies(lines: List[str]) -> List[List[str]]:
     return out
 
 
+_GUARD = re.compile(r"^@!?(U?P\w+)\s+")
+_PRED = re.compile(r"!?(P[0-6])")
+_SETP = ("ISETP", "FSETP", "DSETP", "PLOP3")
+
+
+def lost_carries(lines: List[str]) -> List[str]:
+    """The instructions of a listing that overwrite a carry no
+    instruction has read yet: the carry-out predicate of an IADD3 (an
+    add chain's flag) written again before an instruction takes it as a
+    source or a guard.  Empty where ptxas kept every carry of the
+    chains until its reader, whatever it scheduled between them."""
+    live, lost = set(), []
+    for line in lines:
+        m = _INSN.search(line)
+        if not m:
+            continue
+        text = line[m.start(1):].split(";")[0]
+        op, _, rest = text.partition(" ")
+        args = [a.strip() for a in rest.split(",")]
+        if op.startswith(_SETP):
+            n_out = sum(1 for a in args[:2] if _PRED.fullmatch(a))
+        else:  # a register, then any predicates it writes
+            n_out = 1
+            while n_out < len(args) and _PRED.fullmatch(args[n_out]):
+                n_out += 1
+            n_out -= 1
+            args = args[1:]
+        outs = {_PRED.fullmatch(a).group(1) for a in args[:n_out]}
+        reads = {x.group(1) for a in args[n_out:]
+                 for x in [_PRED.fullmatch(a)] if x}
+        g = _GUARD.search(line[line.find("*/") + 2:].strip())
+        if g:
+            reads.add(g.group(1))
+        live -= reads
+        if outs & live:
+            lost.append(line)
+        live -= outs
+        if op.startswith("IADD3"):
+            live |= outs
+    return lost
+
+
 def sass_hash(lines: List[str]) -> str:
     """sha256 (first 16 hex digits) of a kernel's SASS listing."""
     return hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]

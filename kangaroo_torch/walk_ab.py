@@ -9,11 +9,15 @@ the public wrapper `ops.jump_cuda.jump_steps_with_dp` and the probe
 Per turn, on the same seeded random herd (2^22 lanes) and the range-64
 jump tables: the plain and the symmetry walk kernel at 2^22 lanes x
 1024 steps (dp 14, 6 slots; ms per launch by CUDA events, one warm-up and
-the mean of 3), the P3 base probe at 2^22 x 64 (dp 20, 6 slots), and a
-hash of each kernel's outputs after one 64-step window (px, canonical
-py, d, count, every slot, symclass), which must agree across the turns:
-the two kernels compute the same function.  Prints one line per turn,
-the card's name and power limit, and a JSON summary as the last line.
+the mean of 3), the P3 base probe at 2^22 x 64 (dp 20, 6 slots), and
+hashes of each kernel's outputs (px, canonical py, d, count, every slot,
+symclass): after one 64-step window on that random herd, and after one
+whole 1024-step window (dp 16, 4 slots) on a puzzle #85 search herd
+(2^22 lanes of an 84-bit range, made by `core.herd.create_herd`, the
+herd kernel on a card) with its range-84 tables.  The hashes must agree
+across the turns: the two kernels compute the same function.  Prints one
+line per turn, the card's name and power limit, and a JSON summary as
+the last line.
 """
 
 from __future__ import annotations
@@ -28,9 +32,11 @@ _TURN = r'''
 import hashlib, json, sys, time
 import numpy as np, torch
 from concurrent.futures import ThreadPoolExecutor
+from kangaroo_torch.core import curve, herd
 from kangaroo_torch.core.jumptable import create_jump_table
 from kangaroo_torch.ops import field, jump_cuda, jump_ref, probe_cuda
 from kangaroo_torch.profile_walk import cuda_ms
+from kangaroo_torch.utils.rng import MT19937
 
 t = time.time()
 with ThreadPoolExecutor(2) as ex:
@@ -43,25 +49,41 @@ state = [torch.from_numpy(rng.randint(0, 1 << 16, (r, n)).astype(np.int32)
                           ).to(dev) for r in (16, 16, 8)]
 sc0 = torch.from_numpy(rng.randint(0, 2, n).astype(np.int32)).to(dev)
 out = {"build_s": build_s}
-for sym in (False, True):
-    tabs = [torch.from_numpy(a.astype(np.int32)).to(dev)
-            for a in create_jump_table(64, symmetry=sym).as_arrays()]
-    masks = jump_ref.dp_limb_masks(14, dev)
-    kw = {"symmetry": True, "symclass": sc0.clone()} if sym else {}
-    st = [x.clone() for x in state]
-    r = jump_cuda.jump_steps_with_dp(*st, *tabs, masks, nb_run=64, slots=6,
-                                     **kw)
+def digest(r):
     r = list(r)
     r[1] = field.canonicalize(r[1])
     h = hashlib.sha256()
     for x in r:
         h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+def tables(rp, sym):
+    return [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in create_jump_table(rp, symmetry=sym).as_arrays()]
+for sym in (False, True):
+    rp = 84  # puzzle #85: the range [2^84, 2^85)
+    hs = herd.create_herd(n, rp, ((1 << rp) - 1) >> 1,
+                          curve.mul(0xA1F5302F24DC55964EECE), 0, MT19937(85),
+                          device=dev, symmetry=sym)
+    kw = {"symmetry": True,
+          "symclass": torch.zeros(n, dtype=torch.int32, device=dev)
+          } if sym else {}
+    window = digest(jump_cuda.jump_steps_with_dp(
+        *hs, *tables(rp, sym), jump_ref.dp_limb_masks(16, dev), nb_run=1024,
+        slots=4, **kw))
+    del hs, kw
+    tabs = tables(64, sym)
+    masks = jump_ref.dp_limb_masks(14, dev)
+    kw = {"symmetry": True, "symclass": sc0.clone()} if sym else {}
+    st = [x.clone() for x in state]
+    h = digest(jump_cuda.jump_steps_with_dp(*st, *tabs, masks, nb_run=64,
+                                            slots=6, **kw))
     def launch():
         return jump_cuda.jump_steps_with_dp(*st, *tabs, masks, nb_run=1024,
                                             slots=6, **kw)
     launch()
     _, ms = cuda_ms(launch, reps=3)
-    out["sym" if sym else "plain"] = {"ms": ms, "hash": h.hexdigest()[:16]}
+    out["sym" if sym else "plain"] = {"ms": ms, "hash": h,
+                                      "hash_1024": window}
 tabs = [torch.from_numpy(a.astype(np.int32)).to(dev)
         for a in create_jump_table(64).as_arrays()]
 masks = jump_ref.dp_limb_masks(20, dev)
@@ -107,9 +129,12 @@ def main(argv=None):
         print(f"{k} ({dirs[k]}): plain {r['plain']['ms']:.1f} ms, symmetry "
               f"{r['sym']['ms']:.1f} ms per 2^22 x 1024 launch; pkdelta "
               f"base {r['pkdelta_base_ms']:.3f} ms per 2^22 x 64; build "
-              f"{r['build_s']:.1f} s; output hashes {r['plain']['hash']} "
-              f"{r['sym']['hash']}", flush=True)
-    hashes = {(r["plain"]["hash"], r["sym"]["hash"]) for _, r in turns}
+              f"{r['build_s']:.1f} s; output hashes (64 steps, 1024 on the "
+              f"search herd) {r['plain']['hash']} {r['sym']['hash']} "
+              f"{r['plain']['hash_1024']} {r['sym']['hash_1024']}",
+              flush=True)
+    hashes = {tuple(r[m][k] for m in ("plain", "sym")
+                    for k in ("hash", "hash_1024")) for _, r in turns}
     summary = {}
     for k in sorted(set(order)):
         rs = [r for kk, r in turns if kk == k]

@@ -154,6 +154,106 @@ def test_field_chain_matches_plain_on_card(card, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ("words", "band", "edges", "mixed"))
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_mul_sqr_every_carry_pattern_on_card(card, op, case):
+    """fe_mul and fe_sqr on the card, one P1 round a lane, against Python
+    ints on tests/carry_cases.py's operands (the host build's sets):
+    below 2^256 and congruent to the product mod p."""
+    from tests import carry_cases as cc
+
+    if op == "mul":
+        a, b = cc.mul_pairs(case)
+    else:
+        a = b = cc.sqr_values(case)
+    pad = [0] * (-len(a) % probe_cuda.THREADS)
+    x, y = (torch.from_numpy(cc.to_limbs(cc.to_words(v + pad).T)).to(card)
+            for v in (a, b))
+    key = probe_cuda.kernel_key("field_chain", op)
+    launches = probe_cuda.LAUNCHES[key]
+    got = probe_cuda.field_chain(op, x, y, 1)
+    assert probe_cuda.LAUNCHES[key] == launches + 1
+    r = cc.from_limbs(got.cpu().numpy())[:len(a)]
+    assert cc.wrong(cc.to_ints(r), [u * v for u, v in zip(a, b)]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ("ones_zeros", "mixed"))
+def test_reduce512_every_carry_pattern_on_card(card, case):
+    """fe_reduce512 on the card (probe_cuda.reduce512) against Python
+    ints on the host build's 512-bit inputs: below 2^256, congruent mod
+    p."""
+    from tests import carry_cases as cc
+
+    t = cc.reduce_inputs(case)
+    w = cc.to_words(t, 16)
+    lo, hi = (torch.from_numpy(cc.to_limbs(np.ascontiguousarray(h.T)))
+              .to(card) for h in (w[:, :8], w[:, 8:]))
+    launches = probe_cuda.LAUNCHES["reduce512"]
+    got = probe_cuda.reduce512(lo, hi)
+    assert probe_cuda.LAUNCHES["reduce512"] == launches + 1
+    assert cc.wrong(cc.to_ints(cc.from_limbs(got.cpu().numpy())), t) == 0
+
+
+@pytest.mark.cuda
+def test_carry_chains_keep_their_carries_on_card(card):
+    """In the SASS of both walk kernels, the herd kernel, P1's multiply
+    and squaring and the reduction's entry, no instruction overwrites an
+    add chain's carry before it is read (utils/sass.lost_carries)."""
+    from kangaroo_torch.ops import herd_cuda
+    from kangaroo_torch.utils import sass
+
+    funcs = {}
+    for lib in (jump_cuda.build(), herd_cuda.build(), probe_cuda.build()):
+        funcs.update(sass.sass_functions(lib))
+    tags = ("kt_jump_kernelILb0", "kt_jump_kernelILb1", "kt_herd_kernel",
+            "kt_field_chainILi0E", "kt_field_chainILi1E",
+            "kt_reduce512_kernel")
+    lost = {tag: sass.lost_carries(lines) for tag in tags
+            for name, lines in funcs.items() if tag in name}
+    assert lost == {tag: [] for tag in tags}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("symmetry", [False, True], ids=["plain", "sym"])
+def test_search_herd_window_matches_plain_on_card(card, symmetry):
+    """A puzzle #85 search herd (2^22 lanes of an 84-bit range, made by
+    the herd kernel) walked one whole window of the search (1024 steps,
+    dp 16, 4 slots) by the walk kernel, against the plain walk on the
+    four corner lanes of every block (chip_smoke.py's compare subset):
+    every output bit-equal (py canonical)."""
+    from kangaroo_torch.ops import herd_cuda
+
+    n, rp = 1 << 22, 84
+    launches = herd_cuda.LAUNCHES
+    state = herd.create_herd(n, rp, ((1 << rp) - 1) >> 1,
+                             curve.mul(0xA1F5302F24DC55964EECE), 0,
+                             MT19937(85), device=card, symmetry=symmetry)
+    assert herd_cuda.LAUNCHES == launches + 1
+    if symmetry:
+        state = state + (torch.zeros(n, dtype=torch.int32, device=card),)
+    tabs = [torch.from_numpy(a.astype("int32")).to(card)
+            for a in create_jump_table(rp, symmetry).as_arrays()]
+    masks = jump_ref.dp_limb_masks(16, card)
+    q, t = jump_cuda.LANE_QUANTUM, jump_cuda.THREADS
+    idx = torch.tensor([b * q + c for b in range(n // q)
+                        for c in (0, t - 1, q - t, q - 1)], device=card)
+    sub = [x[..., idx].contiguous() for x in state]
+    kw = ({"symmetry": True, "symclass": state[3]} if symmetry else {})
+    k = jump_cuda.jump_steps_with_dp(*state[:3], *tabs, masks, nb_run=1024,
+                                     slots=4, **kw)
+    k = [x[..., idx] for x in k]
+    kw = ({"symmetry": True, "symclass": sub[3]} if symmetry else {})
+    p = jump_ref.jump_steps_with_dp(*sub[:3], *tabs, masks, nb_run=1024,
+                                    slots=4, **kw)
+    for name, a, b in zip(NAMES + ("symclass",), k, p):
+        if name == "py":
+            a, b = field.canonicalize(a), field.canonicalize(b)
+        assert torch.equal(a, b), name
+    assert int(p[3].sum()) > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("op,ilp,smem", [
     (op, ilp, 0) for op in probe_ref.RAW_OPS
     for ilp in probe_cuda.RAW_ILPS[op]] + [("layout", 1, 100 * 1024)])

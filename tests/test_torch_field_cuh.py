@@ -31,7 +31,8 @@ from kangaroo_tpu.utils.rng import MT19937  # noqa: E402
 from kangaroo_torch import interop  # noqa: E402
 from kangaroo_torch.constants import P  # noqa: E402
 from kangaroo_torch.ops import (  # noqa: E402
-    field, host_kernel, jump_cuda, jump_ref)
+    field, host_kernel, jump_cuda, jump_ref, probe_cuda)
+from tests import carry_cases as cc  # noqa: E402
 
 RS = np.random.RandomState(0xC0DE)
 
@@ -191,6 +192,97 @@ def test_add_sub_match_jax(lib, name, jax_fn):
     got = np.asarray(jax.jit(getattr(jfield, jax_fn))(limbs(wa), limbs(wb)))
     want = unwords(np.ascontiguousarray((got[0::2] | (got[1::2] << 16)).T))
     assert [g % P for g in unwords(r)] == [w % P for w in want]
+
+
+CARRY_OPS = ("add_cc", "addc_cc", "addc", "sub_cc", "subc_cc", "subc")
+
+
+def carry_op(op, a, b, cf):
+    """(result, flag left) of a carry primitive by its definition: the
+    flag of an add is the carry of a + b (+ cf), of a sub that of a + ~b
+    + 1 (+ cf - 1 for subc_cc, subc); addc and subc leave it."""
+    if op.startswith("add"):
+        s = a + b + (cf if op != "add_cc" else 0)
+    else:
+        s = a + (b ^ 0xFFFFFFFF) + (cf if op != "sub_cc" else 1)
+    keep = op in ("addc", "subc")
+    return s & 0xFFFFFFFF, cf if keep else s >> 32
+
+
+@pytest.mark.parametrize("op", CARRY_OPS)
+def test_carry_primitive_on_the_flags_edges(lib, op):
+    """Each carry primitive's host twin against its definition, with the
+    flag coming in 0 and 1, on operand pairs whose sum (a + b, or a + ~b
+    for a sub) is 2^32 - 2, 2^32 - 1, 2^32 and 2^32 + 1, and on random
+    pairs: the result and the flag it leaves."""
+    rs = np.random.RandomState(0xCC)
+    firsts = [0, 1, 2, 977, 1 << 31, cc.M32 - 1, cc.M32]
+    firsts += [int(v) for v in rs.randint(0, 1 << 32, 40, dtype=np.int64)]
+    a, b = [], []
+    for s in ((1 << 32) - 2, (1 << 32) - 1, 1 << 32, (1 << 32) + 1):
+        for x in firsts:
+            y = s - x  # the second operand (add) or its complement (sub)
+            if 0 <= y <= cc.M32:
+                a.append(x)
+                b.append(y if op.startswith("add") else y ^ cc.M32)
+    a += [int(v) for v in rs.randint(0, 1 << 32, 500, dtype=np.int64)]
+    b += [int(v) for v in rs.randint(0, 1 << 32, 500, dtype=np.int64)]
+    a, b = a * 2, b * 2
+    cin = [0] * (len(a) // 2) + [1] * (len(a) // 2)
+    wa, wb = np.array(a, np.uint32), np.array(b, np.uint32)
+    r = np.zeros_like(wa)
+    cf = np.array(cin, np.uint32)
+    assert lib.kt_carry_op_n(CARRY_OPS.index(op), r.ctypes.data,
+                             cf.ctypes.data, wa.ctypes.data, wb.ctypes.data,
+                             len(a)) == 0
+    want = [carry_op(op, x, y, c) for x, y, c in zip(a, b, cin)]
+    assert list(zip(r.tolist(), cf.tolist())) == want
+    # both flags come out of the edges
+    assert {w[1] for w in want} == {0, 1}
+
+
+@pytest.mark.parametrize("case", cc.MUL_CASES)
+@pytest.mark.parametrize("op", ["mul", "sqr"])
+def test_mul_sqr_every_carry_pattern(lib, op, case):
+    """fe_mul and fe_sqr against Python ints on tests/carry_cases.py's
+    operands: every pair of operands whose words are 0 or 2^32 - 1, the
+    band [p, 2^256) against those, p - 1, p, p + 1, 2^255, 2^256 - 1
+    against all, and 2^16 pairs of mixed words (squaring: each operand
+    once).  Every result is below 2^256 and congruent to the product
+    mod p."""
+    if op == "mul":
+        a, b = cc.mul_pairs(case)
+        wa, wb = cc.to_words(a), cc.to_words(b)
+        r = np.zeros_like(wa)
+        lib.kt_fe_mul_n(r.ctypes.data, wa.ctypes.data, wb.ctypes.data,
+                        len(a))
+        want = [x * y for x, y in zip(a, b)]
+    else:
+        a = cc.sqr_values(case)
+        wa = cc.to_words(a)
+        r = np.zeros_like(wa)
+        lib.kt_fe_sqr_n(r.ctypes.data, wa.ctypes.data, len(a))
+        want = [x * x for x in a]
+    assert cc.wrong(cc.to_ints(r), want) == 0
+
+
+@pytest.mark.parametrize("case", cc.REDUCE_CASES)
+def test_reduce512_every_carry_pattern(lib, case):
+    """fe_reduce512 against Python ints on every 512-bit input whose 16
+    words are 0 or 2^32 - 1, and on 2^16 inputs whose words are 0, 1,
+    2^31, 2^32 - 2 or 2^32 - 1: below 2^256, congruent mod p; the card
+    entry's plain version on the first 2048."""
+    t = cc.reduce_inputs(case)
+    wt = cc.to_words(t, 16)
+    r = np.zeros((len(t), 8), np.uint32)
+    lib.kt_fe_reduce512_n(r.ctypes.data, wt.ctypes.data, len(t))
+    assert cc.wrong(cc.to_ints(r), t) == 0
+    # the card entry's plain version, which it takes on the CPU
+    few = wt[:2048]
+    lo, hi = (torch.from_numpy(cc.to_limbs(np.ascontiguousarray(h.T)))
+              for h in (few[:, :8], few[:, 8:]))
+    plain = cc.from_limbs(probe_cuda.reduce512(lo, hi).numpy())
+    assert cc.wrong(cc.to_ints(plain), t[:2048]) == 0
 
 
 def test_sqr_inv_canon(lib):

@@ -73,3 +73,33 @@ def test_loop_bodies(name, want):
     got = [[sass._INSN.search(x).group(1) for x in body]
            for body in sass.loop_bodies(lines)]
     assert got == want
+
+
+CHAIN = ["        /*0000*/                   IADD3 R2, P1, R3, R2, RZ ;",
+         "        /*0010*/                   IMAD.WIDE.U32 R8, R4, R5, RZ ;"]
+
+
+@pytest.mark.parametrize("tail,lost", [
+    # the carry read by the chain's next add, then its predicate reused
+    (["        /*0020*/                   IADD3.X R4, R5, R4, RZ, P1, !PT ;",
+      "        /*0030*/                   ISETP.GE.AND P1, PT, R0, 0x1, PT ;"],
+     []),
+    # read as a guard, then overwritten by an address computation
+    (["        /*0020*/               @P1 BRA 0x40 ;",
+      "        /*0030*/                   LEA R18, P1, R6, R7, 0x4 ;"], []),
+    # read by a select (a chain's last carry as 0 or 1)
+    (["        /*0020*/                   SEL R19, RZ, 0x1, !P1 ;",
+      "        /*0030*/                   IADD3 R9, P1, R1, R9, RZ ;"], []),
+    # overwritten by a compare before the chain reads it
+    (["        /*0020*/                   ISETP.GE.AND P1, PT, R0, 0x1, PT ;",
+      "        /*0030*/                   IADD3.X R4, R5, R4, RZ, P1, !PT ;"],
+     [0]),
+    # overwritten by another add's carry
+    (["        /*0020*/                   IADD3 R6, P1, R7, R6, RZ ;",
+      "        /*0030*/                   IADD3.X R4, R5, R4, RZ, P1, !PT ;"],
+     [0]),
+], ids=["read", "guard", "select", "compare", "add"])
+def test_lost_carries(tail, lost):
+    """lost_carries flags the instruction that overwrites an IADD3's
+    carry before any instruction reads it, and nothing else."""
+    assert sass.lost_carries(CHAIN + tail) == [tail[i] for i in lost]
